@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multiagent_orb_slam2_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, then drives
-the port's main path (``System.track_stereo`` on a rendered stereo corridor)
-at the full KITTI-shaped width: 1241x376 stereo, 2000 ORB features over 8
-levels, 64 keyframes, 32768 map points, 2048 feature slots. It fails (exit
-code other than 0) when there is no CUDA device, when a kernel does not
-build, launch or agree, when the main path never launched a kernel, or when
-the trajectory is wrong. Needs no network and no other process.
+Builds the port's CUDA kernels from ``multiagent_orb_slam2_tpu_torch/csrc``
+(pose optimizer, Schur preparation, PCG), holds each kernel against its plain
+PyTorch version on the card, then drives the port's main paths through
+``System.track_stereo`` on a rendered stereo corridor at the full
+KITTI-shaped width (1241x376 stereo, 2000 ORB features over 8 levels, 64
+keyframes, 32768 map points, 2048 feature slots, 24 observations per point):
+60 frames with local bundle adjustment and keyframe culling (the default),
+then the first 30 frames with local bundle adjustment switched off. It fails
+(exit code other than 0) when there is no CUDA device, when a kernel does not
+build, launch or agree, when a path never launched its kernels, or when a
+trajectory is wrong. Needs no network and no other process.
 
-Output, in order: the card's name and power limit, build seconds, one
-``kernels:`` line with the comparison at every shape, the main path's
+Output, in order: the card's name and power limit, build seconds and ptxas
+lines, one line per kernel with the comparison at every shape, each path's
 numbers, one JSON object ``{"kernels": [...]}``, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``.
 """
@@ -30,15 +33,20 @@ import torch
 from multiagent_orb_slam2_tpu_torch.config import (Capacities, OrbConfig,
                                                    OptimizerConfig, Sensor,
                                                    SlamConfig, TrackingConfig)
+from multiagent_orb_slam2_tpu_torch import convert
 from multiagent_orb_slam2_tpu_torch.geometry.camera import Intrinsics
-from multiagent_orb_slam2_tpu_torch.io import synthetic
+from multiagent_orb_slam2_tpu_torch.io import ba_problem, synthetic
 from multiagent_orb_slam2_tpu_torch.ops import frame as frame_mod
+from multiagent_orb_slam2_tpu_torch.optim import ba as ba_mod
+from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, ba_prep, pcg
 from multiagent_orb_slam2_tpu_torch.optim import pose_opt
+from multiagent_orb_slam2_tpu_torch.runtime import steps as steps_mod
 from multiagent_orb_slam2_tpu_torch.runtime import system as system_mod
 from multiagent_orb_slam2_tpu_torch.runtime.tracker import _np_inverse
 from multiagent_orb_slam2_tpu_torch.utils import cuda_build, torch_ops
 
-N_FRAMES = 30
+N_FRAMES_BA = 60       # the path with local bundle adjustment
+N_FRAMES_NO_BA = 30    # the earlier path, on the first frames of the same run
 CAM = Intrinsics(fx=718.9, fy=718.9, cx=620.5, cy=188.0, bf=386.1,
                  width=1241, height=376)
 CFG = SlamConfig(
@@ -190,21 +198,281 @@ def check_pose_kernel():
 
 
 # ---------------------------------------------------------------------------
+# K2 (Schur preparation) and K3 (PCG) against their plain versions
+# ---------------------------------------------------------------------------
+
+D2M, D2S = 5.991, 7.815
+# float32 operations of csrc/ba_prep.cu per active slot: the slot evaluation
+# (rotate, project, chi2, Huber, Jacobian rows, rotation matrix: 95) runs in
+# both passes; pass 1 adds Jp (45), Hpp (36) and bp (18); pass 2 adds Jp (45),
+# Jc (27), Wb (108), Y and Ybp (126), Ht (126) and bt (42)
+PREP_FLOP_PER_ACTIVE_SLOT = (2 * 95 + 45 + 36 + 18
+                             + 45 + 27 + 108 + 126 + 126 + 42)
+
+
+def scale_err(got, want):
+    """max |got - want| over the largest magnitude of `want`."""
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def ba_case(K, P, M, share, seed, mono_mix=False):
+    """A seeded BA problem on the card with its solve constants."""
+    fields, cam = ba_problem.build_problem(K, P, M, seed=seed,
+                                           active_share=share)
+    if mono_mix:
+        rng = np.random.default_rng(seed + 1)
+        fields["obs_stereo"] = rng.random((P, M)) < 0.6
+        fields["obs_inv_sigma2"] = (
+            1.0 / 1.2 ** (2 * rng.integers(0, 8, (P, M)))).astype(np.float32)
+        fields["pose_fixed"][:2] = True
+    prob = convert.ba_problem_from_numpy(fields, "cuda")
+    return prob, cam, ba_mod._prepare_solve(prob, steps_mod._ba_chunk(P))
+
+
+def prep_bound_ms(ws, K, cost_only=False):
+    """Least time for one launch on this problem: every input read once
+    (flags of all slots; pose index, observation and information of the
+    active ones; points, poses, lambda), every output written once (active
+    slots only: the others are never written), against the float32
+    operations of the active slots."""
+    M, P = ws.kf.shape
+    n_act = int(ws.active.sum())
+    bytes_in = M * P + n_act * (4 + 12 + 4) + P * 12 + K * 28 + 4
+    floats_out = n_act * 2 if cost_only else n_act * (18 + 18 + 33 + 2) + P * 9
+    t_bytes = (bytes_in + 4 * floats_out) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_act * PREP_FLOP_PER_ACTIVE_SLOT / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_prep_kernel():
+    """K2 at the main path's shape, the benchmark's shape and a small mono +
+    stereo mix: every output against the plain version (float32) within 1e-3
+    of the output's scale, and no further from a float64 evaluation than
+    twice the plain float32 version is; cost-only mode equals the full mode;
+    two launches are bit-identical. Returns the rows and, per shape, the
+    reduced camera system of that build for the PCG check."""
+    rows, systems = [], {}
+    shapes = ((64, 32768, 24, 0.15, False), (256, 65536, 8, 1.0, False),
+              (8, 1024, 8, 0.8, True), (512, 32768, 8, 1.0, False))
+    for K, P, M, share, mono_mix in shapes:
+        prob, cam, sc = ba_case(K, P, M, share, seed=K + M, mono_mix=mono_mix)
+        lam = torch.full((1,), 1e-4, device="cuda")
+        args = (prob.q, prob.t, prob.pw, lam, cam, D2M, D2S, True)
+        k = ba_prep.prep_terms(sc.ws, *args)
+        torch.cuda.synchronize()
+        kept = ba_prep.PrepTerms(*[a.clone() for a in k])
+        p32 = ba_prep._prep_terms_plain(sc.ws, *args)
+        ws64 = sc.ws._replace(uvr=sc.ws.uvr.double(), isig=sc.ws.isig.double(),
+                              active=sc.ws.active.double())
+        p64 = ba_prep._prep_terms_plain(
+            ws64, prob.q.double(), prob.t.double(), prob.pw.double(),
+            lam.double(), cam, D2M, D2S, True)
+        errs = {n: scale_err(a, b) for n, a, b in zip(kept._fields, kept, p32)}
+        k64 = {n: scale_err(a.double(), b)
+               for n, a, b in zip(kept._fields, kept, p64)}
+        f64 = {n: scale_err(a.double(), b)
+               for n, a, b in zip(kept._fields, p32, p64)}
+        worst = max(errs.values())
+        finite = all(bool(torch.isfinite(a).all()) for a in kept)
+        far = [n for n in errs if k64[n] > 2.0 * f64[n] + 1e-6]
+        if not finite or worst > 1e-3 or far:
+            raise SystemExit(
+                f"ba_prep kernel disagrees with its plain version at K={K} "
+                f"P={P} M={M}: errors over scale {errs} (tolerance 1e-3); "
+                f"against float64 {k64}, plain float32 against float64 {f64}, "
+                f"further than twice that: {far}")
+        kc = ba_prep.prep_terms(sc.ws, prob.q, prob.t, prob.pw, None, cam,
+                                D2M, D2S, True, cost_only=True)
+        if not (torch.equal(kc.cost, kept.cost)
+                and torch.equal(kc.chi2, kept.chi2)):
+            raise SystemExit("ba_prep cost-only mode differs from full mode")
+        again = ba_prep.prep_terms(sc.ws, *args)
+        if not all(torch.equal(a, b) for a, b in zip(again, kept)):
+            raise SystemExit("ba_prep kernel is not deterministic")
+        kernel_ms = cuda_ms(lambda: ba_prep.prep_terms(sc.ws, *args), 20)
+        cost_ms = cuda_ms(lambda: ba_prep.prep_terms(
+            sc.ws, prob.q, prob.t, prob.pw, None, cam, D2M, D2S, True,
+            cost_only=True), 20)
+        plain_ms = cuda_ms(lambda: ba_prep._prep_terms_plain(sc.ws, *args), 3)
+        bound_ms, bound_by = prep_bound_ms(sc.ws, K)
+        rows.append({"name": "ba_prep", "K": K, "P": P, "M": M,
+                     "active_share": float(sc.ws.active.mean()),
+                     "max_err_over_scale": worst, "errors": errs,
+                     "max_err_vs_float64": max(k64.values()),
+                     "plain_err_vs_float64": max(f64.values()),
+                     "kernel_ms": kernel_ms, "cost_only_ms": cost_ms,
+                     "cost_only_bound_ms": prep_bound_ms(sc.ws, K, True)[0],
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        # the reduced camera system of this build, for K3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S_blocks, dsum = ba_mod._assemble(kept, sc)
+        torch.cuda.synchronize()
+        rows[-1]["assembly_ms"] = (time.perf_counter() - t0) * 1e3
+        Hcc = dsum[:21].t()[:, sc.triu]
+        S = ba_mod._reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
+        rhs = torch.where(sc.free[:, None], dsum[21:27].t() - dsum[27:33].t(),
+                          torch.zeros_like(dsum[21:27].t())).reshape(-1)
+        eye6 = torch.eye(6, device="cuda")
+        systems[6 * K] = (
+            S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K).contiguous(), rhs,
+            torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse)
+        del prob, sc, kept, p32, p64, ws64, k, kc, again, S_blocks
+        torch.cuda.empty_cache()
+    print("ba_prep: " + json.dumps(rows))
+    return rows, systems
+
+
+def pcg_bound_ms(D, n_iters, warm):
+    """S is read once per iteration (once more for a warm start): bytes over
+    the memory rate against 2 D^2 operations per read. S fits the 50 MB L2 at
+    every D up to 3072, so the device-memory rate is not a floor here."""
+    reads = n_iters + (1 if warm else 0)
+    t_bytes = reads * D * D * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * reads * D * D / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_pcg_kernel(systems):
+    """K3 against ba_kernels.pcg_solve on reduced camera systems taken from
+    real builds, D = 48, 384, 1536 and 3072, with and without a warm start.
+    After 2 iterations the two agree within 1e-4 of x's scale (the same
+    arithmetic in another summation order; r - alpha A p cancels, which
+    amplifies the last bit of alpha). After 32 iterations they are two
+    inexact solves of an ill-conditioned system, and CG's iterates differ
+    most along the directions S hardly sees, so they are held together in
+    the norm CG minimises: the energy norm of the kernel's error against a
+    float64 solve is no worse than 1.1 x the plain version's, the two
+    differ by at most 0.25 of that error (plus 1e-5) in the same norm, and
+    the kernel's true residual is no worse than 1.1 x the plain version's.
+    Two launches are bit-identical."""
+    lib = pcg.load_kernel()
+    rows = []
+    for D in sorted(systems):
+        S, rhs, Dinv = systems[D]
+        S64 = S.double()
+        exact = torch.linalg.solve(S64, rhs.double())
+        norm = float(torch.sqrt(exact @ (S64 @ exact)))
+
+        def energy(d):
+            d = d.double()
+            return float(torch.sqrt((d @ (S64 @ d)).clamp_min(0.0))) / norm
+
+        def res(x):
+            return float((S @ x - rhs).norm() / rhs.norm())
+
+        for warm in (None, 0.5 * exact.float()):
+            k2 = pcg.pcg_solve(S, rhs, Dinv, 2, warm)
+            p2 = ba_kernels.pcg_solve(S, rhs, Dinv, 2, warm)
+            xk = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
+            torch.cuda.synchronize()
+            xp = ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm)
+            err2, err = scale_err(k2, p2), scale_err(xk, xp)
+            res_k, res_p = res(xk), res(xp)
+            en_k, en_p = energy(xk - exact), energy(xp - exact)
+            en_diff = energy(xk - xp)
+            again = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
+            row = {"name": "pcg", "D": D, "warm_start": warm is not None,
+                   "err_2_iters": err2, "err_32_iters": err,
+                   "energy_err_kernel": en_k, "energy_err_plain": en_p,
+                   "energy_diff": en_diff,
+                   "residual_kernel": res_k, "residual_plain": res_p}
+            if not (bool(torch.isfinite(xk).all()) and err2 <= 1e-4
+                    and en_k <= 1.1 * en_p + 1e-6
+                    and en_diff <= 0.25 * en_p + 1e-5
+                    and res_k <= 1.1 * res_p + 1e-7):
+                raise SystemExit("pcg kernel disagrees with its plain "
+                                 "version: " + json.dumps(row))
+            if not torch.equal(xk, again):
+                raise SystemExit("pcg kernel is not deterministic")
+            kernel_ms = cuda_ms(lambda: pcg.pcg_solve(S, rhs, Dinv, 32, warm),
+                                20)
+            plain_ms = cuda_ms(
+                lambda: ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm), 5)
+            bound_ms, bound_by = pcg_bound_ms(D, 32, warm is not None)
+            row.update({"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "grid_blocks": lib.pcg_grid_blocks(D)})
+            rows.append(row)
+        # the exact solve a later change will weigh K3 against (another
+        # function than 32 inexact CG steps, so not a library time of K3)
+        rows[-1]["cholesky_solve_ms"] = cuda_ms(
+            lambda: torch.cholesky_solve(rhs[:, None],
+                                         torch.linalg.cholesky_ex(S).L), 5)
+        # the serial skeleton: two grid barriers and reductions an iteration
+        scratch = torch.empty(lib.pcg_scratch_floats(D), device="cuda")
+        out = torch.empty(1, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def chain(count):
+            if lib.pcg_barrier_chain(scratch.data_ptr(), out.data_ptr(), D,
+                                     count, stream) != 0:
+                raise SystemExit("pcg barrier-chain probe failed to launch")
+
+        n = 2000
+        per_iter_us = (cuda_ms(lambda: chain(n), 5)
+                       - cuda_ms(lambda: chain(0), 5)) / n * 1e3
+        rows[-1]["barrier_pair_us"] = per_iter_us
+        rows[-1]["serial_floor_ms"] = 33 * per_iter_us * 1e-3
+    print("pcg: " + json.dumps(rows))
+    return rows
+
+
+def check_solver_determinism():
+    """Two runs of ba_solve_fast on the card are bit-identical."""
+    for K, P, M, share in ((8, 1024, 8, 0.8), (64, 32768, 24, 0.15)):
+        prob, cam, _ = ba_case(K, P, M, share, seed=3, mono_mix=K == 8)
+        a = ba_mod.ba_solve_fast(prob, cam, n_iters=5,
+                                 chunk=steps_mod._ba_chunk(P))
+        b = ba_mod.ba_solve_fast(prob, cam, n_iters=5,
+                                 chunk=steps_mod._ba_chunk(P))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit(f"ba_solve_fast is not deterministic at K={K}")
+        if not bool(torch.isfinite(a.cost)):
+            raise SystemExit(f"ba_solve_fast cost is not finite at K={K}")
+        ms = cuda_ms(lambda: ba_mod.ba_solve_fast(
+            prob, cam, n_iters=10, chunk=steps_mod._ba_chunk(P)), 3)
+        print(f"ba_solve_fast K={K} P={P} M={M}: two runs bit-identical, "
+              f"10 LM iterations in {ms:.2f} ms")
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
-def drive_main_path():
+def render_corridor(n_frames):
     scene = synthetic.BoxScene(seed=0, z_far=60.0)
-    q_gt, t_gt = synthetic.corridor_trajectory(N_FRAMES, step=0.25)
+    q_gt, t_gt = synthetic.corridor_trajectory(n_frames, step=0.25)
     t0 = time.perf_counter()
     frames = [scene.render_stereo(CAM, q_gt[i], t_gt[i])[:2]
-              for i in range(N_FRAMES)]
-    print(f"rendered {N_FRAMES} stereo frames {CAM.width}x{CAM.height} on the "
+              for i in range(n_frames)]
+    print(f"rendered {n_frames} stereo frames {CAM.width}x{CAM.height} on the "
           f"host in {time.perf_counter() - t0:.1f} s")
+    return frames, t_gt
 
+
+def reset_counts():
+    """Every count to zero, just before a path is driven."""
+    pose_opt.pose_optimize.launches = 0
+    ba_prep.prep_terms.launches = 0
+    pcg.pcg_solve.launches = 0
+    torch_ops.reset_host_fetch_count()
+
+
+def drive_path(frames, t_gt, local_ba: bool):
+    """Drive System.track_stereo over `frames`; returns (launch counts,
+    report). With local_ba the System runs as it is built (local bundle
+    adjustment on every keyframe once the map has three); without, its
+    tracker's run_local_ba is switched off."""
+    n_frames = len(frames)
+    label = "BA path" if local_ba else "no-BA path"
     system = system_mod.System(CFG, None, enable_loop_closing=False)
     tracker = system.tracker
-    phase_ms = {"extract": [], "keyframe": []}
+    if not local_ba:
+        tracker.run_local_ba = False
+    phase_ms = {"extract": [], "keyframe": [], "local_ba": []}
 
     def timed(fn, key):
         def wrapper(*a, **kw):
@@ -217,20 +485,20 @@ def drive_main_path():
         return wrapper
 
     real_extract = frame_mod.extract_frame
+    real_local_ba = steps_mod.local_ba_step
     frame_mod.extract_frame = timed(real_extract, "extract")
+    steps_mod.local_ba_step = timed(real_local_ba, "local_ba")
     tracker._create_keyframe = timed(tracker._create_keyframe, "keyframe")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    # every count to zero just before the main path
-    pose_opt.pose_optimize.launches = 0
-    torch_ops.reset_host_fetch_count()
+    reset_counts()
     frame_ms, fetches, syncs, sync_sites = [], [], [], []
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for i, (left, right) in enumerate(frames):
-            phase_ms["extract"].append(0.0)
-            phase_ms["keyframe"].append(0.0)
+            for key in phase_ms:
+                phase_ms[key].append(0.0)
             before = torch_ops.host_fetch_count()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -246,7 +514,10 @@ def drive_main_path():
     finally:
         torch.cuda.set_sync_debug_mode("default")
         frame_mod.extract_frame = real_extract
-    launches = pose_opt.pose_optimize.launches
+        steps_mod.local_ba_step = real_local_ba
+    launches = {"pose_opt": pose_opt.pose_optimize.launches,
+                "ba_prep": ba_prep.prep_terms.launches,
+                "pcg": pcg.pcg_solve.launches}
     system.shutdown()
 
     # what came out
@@ -254,59 +525,103 @@ def drive_main_path():
     lost = [r.frame_id for r in traj[1:] if r.lost]
     est = np.stack([_np_inverse(r.q.astype(np.float64),
                                 r.t.astype(np.float64))[1] for r in traj])
-    ate = float(np.sqrt(np.mean(np.sum((est - t_gt) ** 2, axis=-1))))
+
+    def ate(n):
+        return float(np.sqrt(np.mean(np.sum((est[:n] - t_gt[:n]) ** 2,
+                                            axis=-1))))
+
     shared = system.shared
     off_card = [k for k, v in shared.state._asdict().items() if not v.is_cuda]
     finite = bool(np.isfinite(est).all()) and all(
         bool(torch.isfinite(v).all()) for v in
         (shared.state.kf_q, shared.state.kf_t, shared.state.mp_pos))
-    is_kf = [ms_ > 0.0 for ms_ in phase_ms["keyframe"]]
-    plain = [i for i in range(1, N_FRAMES) if not is_kf[i]]
+    is_kf = [m > 0.0 for m in phase_ms["keyframe"]]
+    is_ba = [m > 0.0 for m in phase_ms["local_ba"]]
+    n_ba = int(sum(is_ba))
+    plain = [i for i in range(1, n_frames) if not is_kf[i]]
     track_ms = [frame_ms[i] - phase_ms["extract"][i] - phase_ms["keyframe"][i]
-                for i in range(N_FRAMES)]
+                for i in range(n_frames)]
+
+    def median(values):
+        values = list(values)
+        return statistics.median(values) if values else None
+
     report = {
-        "frames": N_FRAMES, "lost": lost, "n_kf": shared.n_kf,
-        "n_mp": shared.n_mp, "ate_m": ate,
-        "pose_opt_launches": launches,
-        "frame_ms_median": statistics.median(frame_ms[1:]),
-        "frame_ms_median_no_keyframe": statistics.median(
-            frame_ms[i] for i in plain),
-        "extract_ms_median": statistics.median(phase_ms["extract"][1:]),
-        "track_ms_median": statistics.median(track_ms[1:]),
-        "keyframe_ms_median": statistics.median(
-            [m for m in phase_ms["keyframe"] if m > 0.0] or [0.0]),
+        "frames": n_frames, "lost": lost, "n_kf": shared.n_kf,
+        "n_mp": shared.n_mp, "ate_m": ate(n_frames),
+        "ate_m_first_30_frames": ate(min(30, n_frames)),
+        "launches": launches, "local_bas": n_ba,
         "keyframes_spawned": int(sum(is_kf)),
-        "host_fetches_per_frame_median": statistics.median(fetches[1:]),
-        "host_fetches_per_frame_max": max(fetches[1:]),
-        "device_syncs_per_frame_median_no_keyframe": statistics.median(
+        "keyframes_culled": (shared.n_created
+                             - int(shared.state.kf_valid.sum())),
+        "frame_ms_median": median(frame_ms[1:]),
+        "frame_ms_median_no_keyframe": median(frame_ms[i] for i in plain),
+        "extract_ms_median": median(phase_ms["extract"][1:]),
+        "track_ms_median": median(track_ms[1:]),
+        "keyframe_ms_median": median(
+            m for m, ba in zip(phase_ms["keyframe"], is_ba)
+            if m > 0.0 and ba == local_ba),
+        "local_ba_ms_median": median(m for m in phase_ms["local_ba"] if m > 0),
+        "host_fetches_per_frame_median": median(fetches[1:]),
+        "host_fetches_per_keyframe_frame_median": median(
+            fetches[i] for i in range(1, n_frames) if is_kf[i]),
+        "device_syncs_per_frame_median_no_keyframe": median(
             syncs[i] for i in plain),
+        "device_syncs_per_keyframe_frame_median": median(
+            syncs[i] for i in range(1, n_frames) if is_kf[i]),
         "device_syncs_per_frame_max": max(syncs[1:]),
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
     }
-    print("main path: " + json.dumps(report))
+    print(f"{label}: " + json.dumps(report))
+    print(f"{label}: ms per tracked frame (median, no keyframe) "
+          f"{report['frame_ms_median_no_keyframe']:.2f}")
+    print(f"{label}: ms per keyframe (median) "
+          f"{report['keyframe_ms_median']:.2f}")
+    if local_ba:
+        print(f"{label}: ms per local BA (median of {n_ba}) "
+              f"{report['local_ba_ms_median']:.2f}")
+        print(f"{label}: keyframes culled {report['keyframes_culled']}")
+    print(f"{label}: per keyframe frame, device syncs "
+          f"{report['device_syncs_per_keyframe_frame_median']} and counted "
+          f"host fetches {report['host_fetches_per_keyframe_frame_median']} "
+          "(medians)")
+    print(f"{label}: peak device memory "
+          f"{report['max_memory_allocated_mb']:.1f} MB")
     # where the card made the host wait, on the last frame without a keyframe
     # and on the last frame with one
-    for label, idx in (("tracked frame", plain[-1]),
-                       ("keyframe frame", max(i for i in range(N_FRAMES)
-                                              if is_kf[i]))):
+    for what, idx in (("tracked frame", plain[-1]),
+                      ("keyframe frame", max(i for i in range(n_frames)
+                                             if is_kf[i]))):
         counts = {}
         for site in sync_sites[idx]:
             counts[site] = counts.get(site, 0) + 1
-        print(f"sync sites, {label} {idx}: " + json.dumps(counts))
+        print(f"{label} sync sites, {what} {idx}: " + json.dumps(counts))
     problems = []
     if lost:
         problems.append(f"frames lost after the first: {lost}")
     if shared.n_kf < 3:
         problems.append(f"only {shared.n_kf} keyframes")
-    if not finite or not ate < 0.15:
-        problems.append(f"ATE {ate:.4f} m against ground truth (need < 0.15)")
-    if launches < 2 * (N_FRAMES - 1):
-        problems.append(f"pose_opt kernel launched {launches} times on the "
-                        f"main path (need >= {2 * (N_FRAMES - 1)})")
+    if not finite or not report["ate_m"] < 0.15:
+        problems.append(f"ATE {report['ate_m']:.4f} m against ground truth "
+                        "(need < 0.15)")
+    if launches["pose_opt"] < 2 * (n_frames - 1):
+        problems.append(f"pose_opt kernel launched {launches['pose_opt']} "
+                        f"times (need >= {2 * (n_frames - 1)})")
+    if local_ba:
+        if n_ba < 5:
+            problems.append(f"only {n_ba} local bundle adjustments ran")
+        if launches["ba_prep"] < 19 * n_ba:
+            problems.append(f"ba_prep kernel launched {launches['ba_prep']} "
+                            f"times in {n_ba} local BAs (need >= 19 each)")
+        if launches["pcg"] < 15 * n_ba:
+            problems.append(f"pcg kernel launched {launches['pcg']} times in "
+                            f"{n_ba} local BAs (need >= 15 each)")
+    elif launches["ba_prep"] or launches["pcg"] or n_ba:
+        problems.append("local bundle adjustment ran although switched off")
     if off_card:
         problems.append(f"MapState tensors not on the card: {off_card}")
     if problems:
-        raise SystemExit("main path failed: " + "; ".join(problems))
+        raise SystemExit(f"{label} failed: " + "; ".join(problems))
     return launches, report
 
 
@@ -323,32 +638,76 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: one nvcc process per source, all started together
     t0 = time.perf_counter()
-    pose_opt.load_kernel()
+    cuda_build.load_libraries(["pose_opt", "ba_prep", "pcg"])
+    for mod in (pose_opt, ba_prep, pcg):
+        mod.load_kernel()
     print(f"built {sorted(cuda_build.build_seconds)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc seconds: "
           f"{json.dumps(cuda_build.build_seconds)})")
     for name, log in cuda_build.build_logs.items():
-        used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
+        used = [ln.strip() for ln in log.splitlines()
+                if "Used" in ln or "spill" in ln]
         print(f"ptxas {name}: " + " | ".join(used))
 
     # 3. kernels against their plain versions
     k1, probe = check_pose_kernel()
+    k2_rows, systems = check_prep_kernel()
+    k3_rows = check_pcg_kernel(systems)
+    del systems
+    torch.cuda.empty_cache()
+    check_solver_determinism()
 
-    # 4. main path
-    launches, report = drive_main_path()
+    # 4. the main paths: with local bundle adjustment (what System runs),
+    # then the earlier path without it on the first frames of the same run
+    frames, t_gt = render_corridor(N_FRAMES_BA)
+    ba_launches, ba_report = drive_path(frames, t_gt, local_ba=True)
+    no_ba_launches, no_ba_report = drive_path(
+        frames[:N_FRAMES_NO_BA], t_gt[:N_FRAMES_NO_BA], local_ba=False)
+    print("ATE on the first 30 frames: "
+          f"{ba_report['ate_m_first_30_frames']:.5f} m with local BA, "
+          f"{no_ba_report['ate_m_first_30_frames']:.5f} m without")
 
-    # 5. the record
+    # 5. the record: each kernel at the shape its main path gives it, its
+    # launches read right after that path (pose_opt: both paths)
+    k2 = k2_rows[0]                                   # K=64 P=32768 M=24
+    k3 = next(r for r in k3_rows if r["D"] == 384 and r["warm_start"])
     kernels = [{
         "name": "pose_opt", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/pose_opt.cu",
         "replaces": "multiagent_orb_slam2_tpu/optim/pose_opt_pallas.py:117",
-        "launches": launches, "max_abs_err": k1["max_err"],
+        "launches": ba_launches["pose_opt"],
+        "launches_no_ba_path": no_ba_launches["pose_opt"],
+        "max_abs_err": k1["max_err"],
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,
         "serial_floor_ms": probe["serial_floor_ms"],
+    }, {
+        "name": "ba_prep", "route": "cuda",
+        "source": "multiagent_orb_slam2_tpu_torch/csrc/ba_prep.cu",
+        "replaces": "multiagent_orb_slam2_tpu/optim/ba_pallas.py:33",
+        "launches": ba_launches["ba_prep"],
+        "max_abs_err": k2["max_err_over_scale"],
+        "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None,
+        "cost_only_ms": k2["cost_only_ms"],
+    }, {
+        "name": "pcg", "route": "cuda",
+        "source": "multiagent_orb_slam2_tpu_torch/csrc/pcg.cu",
+        "replaces": "multiagent_orb_slam2_tpu/optim/ba_kernels.py:298",
+        "launches": ba_launches["pcg"],
+        "max_abs_err": k3["err_32_iters"],
+        "err_2_iters": k3["err_2_iters"],
+        "energy_norm_diff": k3["energy_diff"],
+        "energy_norm_err_plain": k3["energy_err_plain"],
+        "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": None,
+        "cholesky_solve_ms": k3["cholesky_solve_ms"],
+        "serial_floor_ms": k3["serial_floor_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,7 @@
 """Carry state between the JAX package and this one, through numpy.
 
-The engine has no weights; its state is ``MapState``, ``FrameFeatures`` and
-``PoseObs``. These functions take and return numpy arrays (a test calls
+The engine has no weights; its state is ``MapState``, ``FrameFeatures``,
+``PoseObs`` and the bundle-adjustment tuples ``BAProblem`` / ``BAResult``. These functions take and return numpy arrays (a test calls
 ``np.asarray`` on the JAX side), so nothing here imports JAX. ``uint32``
 descriptor words are re-viewed as ``int32`` (same bits), never
 value-converted; every other integer array becomes int32, floats float32.
@@ -17,6 +17,7 @@ from . import config as config_mod
 from .geometry.camera import Intrinsics
 from .mapstate.state import MapState
 from .ops.frame import FrameFeatures
+from .optim.ba import BAProblem, BAResult
 from .optim.pose_opt import PoseObs
 
 
@@ -74,6 +75,22 @@ def pose_obs_from_numpy(fields: dict, device) -> PoseObs:
 
 def pose_obs_to_numpy(obs: PoseObs) -> dict:
     return _to_numpy(obs)
+
+
+def ba_problem_from_numpy(fields: dict, device) -> BAProblem:
+    return _from_numpy(BAProblem, fields, device)
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict:
+    return _to_numpy(prob)
+
+
+def ba_result_from_numpy(fields: dict, device) -> BAResult:
+    return _from_numpy(BAResult, fields, device)
+
+
+def ba_result_to_numpy(result: BAResult) -> dict:
+    return _to_numpy(result)
 
 
 def config_from_dict(d: dict) -> config_mod.SlamConfig:

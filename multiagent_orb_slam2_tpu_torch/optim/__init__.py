@@ -1,2 +1,3 @@
-"""Nonlinear least squares: reprojection residuals and the pose-only
-optimizer (plain PyTorch version + CUDA kernel)."""
+"""Nonlinear least squares: reprojection residuals, the pose-only optimizer
+and bundle adjustment (Schur preparation, one-hot assembly, preconditioned
+CG); each CUDA kernel has its plain PyTorch version beside it."""

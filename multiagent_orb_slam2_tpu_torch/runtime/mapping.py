@@ -8,12 +8,12 @@ SearchInNeighbors with ORBmatcher::Fuse, MapPoint::Replace).
   rebuilt from scratch (`rebuild_observations`);
 - merge chains (a->b->c in one pass) resolve over successive keyframes.
 
-Keyframe culling (kf_redundancy, erase_keyframe_step, keyframe_culling),
-fuse_into_neighborhood and local_mapping_pass are not ported yet: they are
-reached only with local BA, loop closing or the server (ROADMAP.md queue 1).
+Keyframe culling (kf_redundancy, erase_keyframe_step, keyframe_culling)
+follows the reference's 90 % redundancy rule.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import SlamConfig
@@ -21,7 +21,9 @@ from ..geometry import se3
 from ..mapstate import state as ms
 from ..ops import matchers
 from ..ops.frame import FrameFeatures
-from ..utils.torch_ops import const_tensor, set_drop, set_drop2
+from ..utils.torch_ops import (const_tensor, fill_at, first_true_indices,
+                               host_fetch, mask_from_ids, set_drop, set_drop2,
+                               top_k_stable)
 
 NONE = ms.NONE
 
@@ -181,17 +183,162 @@ def cull_points_step(state: ms.MapState, newest_kf_slot: int,
     return state._replace(kf_mp=kf_mp, mp_valid=state.mp_valid & ~bad)
 
 
-def _not_ported(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"runtime.mapping.{name} is not ported yet: ROADMAP.md queue 1, "
-            "next slice (local BA + keyframe culling) and loop closing")
-    stub.__name__ = name
-    return stub
+@torch.no_grad()
+def fuse_into_neighborhood(state: ms.MapState, point_ids, center_kf: int,
+                           cfg: SlamConfig, n_max: int = 15):
+    """Fuse a point set into center_kf and its strongest covisible
+    neighbors (the SearchAndFuse loops of loop closing and map fusion: the
+    reference iterates the corrected neighborhood keyframe by keyframe).
+    One host read: the neighbour list."""
+    K = state.kf_q.shape[0]
+    row = fill_at(state.covis[center_kf].clone(), center_kf, 0)
+    top_w, top_i = top_k_stable(row, min(n_max - 1, K))
+    targets = torch.cat([torch.full_like(top_i[:1], center_kf), top_i])
+    ok = torch.cat([torch.ones_like(top_w[:1], dtype=torch.bool), top_w > 0])
+    ok = ok & state.kf_valid[targets]
+    fetched = host_fetch(torch.stack([targets, ok.long()]))
+    for tgt, o in zip(fetched[0], fetched[1]):
+        if o:
+            state = fuse_into_kf(state, point_ids, int(tgt), cfg)
+    return state
 
 
-fuse_into_neighborhood = _not_ported("fuse_into_neighborhood")
-kf_redundancy = _not_ported("kf_redundancy")
-erase_keyframe_step = _not_ported("erase_keyframe_step")
-keyframe_culling = _not_ported("keyframe_culling")
-local_mapping_pass = _not_ported("local_mapping_pass")
+@torch.no_grad()
+def local_mapping_pass(state: ms.MapState, kf_slot: int, cfg: SlamConfig):
+    """The synchronous equivalent of one LocalMapping::Run iteration for a
+    freshly inserted keyframe: cull -> fuse with covisibility neighbors
+    (both directions) -> rebuild inverse obs -> refresh covis + point
+    attributes. Local BA follows separately (steps.local_ba_step).
+    """
+    from . import steps
+    K, F, P, O = state.caps
+    state = cull_points_step(state, kf_slot, cfg)
+
+    # top covisibility neighbors (reference: 10 for stereo, 20 mono)
+    nb = cfg.mapping.triangulation_neighbors
+    top_w, top_i = top_k_stable(state.covis[kf_slot], min(nb, K))
+    fetched = host_fetch(torch.stack([top_i, (top_w > 0).long()]))
+    neighbors = [int(i) for i, w in zip(fetched[0], fetched[1]) if w]
+
+    # direction 1: new KF's points into each neighbor
+    own = state.kf_mp[kf_slot]
+    own_ids = torch.where(own >= 0, own.long(),
+                          torch.full_like(own, P, dtype=torch.int64))
+    for n in neighbors:
+        state = fuse_into_kf(state, own_ids, n, cfg)
+
+    # direction 2: neighbors' points into the new KF
+    if neighbors:
+        cand = torch.stack([state.kf_mp[k] for k in neighbors])   # [NB, F]
+        cand_mask = mask_from_ids(cand, P) & state.mp_valid
+        ids = first_true_indices(cand_mask, cfg.caps.local_points, P)
+        state = fuse_into_kf(state, ids, kf_slot, cfg)
+
+    state = rebuild_observations(state)
+    state = steps.recompute_covisibility(state)
+    touched = mask_from_ids(own, P)
+    state = ms.update_point_descriptors(state, touched)
+    state = ms.update_point_normals(state, touched, cfg.orb.scale_factor,
+                                    cfg.orb.n_levels)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Keyframe culling (LocalMapping::KeyFrameCulling)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def kf_redundancy(state: ms.MapState, kf_slot, cfg: SlamConfig):
+    """Fraction of a keyframe's tracked points that are observed by at least
+    3 OTHER keyframes at the same or finer pyramid level (the 90% redundancy
+    rule). kf_slot is a host int, or a 1-D tensor of slots (one result per
+    slot, no host read). Returns (ratio, n_tracked)."""
+    K, F, P, O = state.caps
+    single = not torch.is_tensor(kf_slot)
+    slots = (torch.full((1,), kf_slot, dtype=torch.int64,
+                        device=state.kf_mp.device) if single
+             else kf_slot.long())
+    mp = state.kf_mp[slots]                            # [S, F]
+    mp_ok = (mp >= 0) & state.kf_feat_valid[slots]
+    mp_c = mp.long().clamp(0, P - 1)
+    own_level = state.kf_level[slots]                  # [S, F]
+
+    obs_kf = state.mp_obs_kf[mp_c]                     # [S, F, O]
+    obs_ft = state.mp_obs_feat[mp_c].long().clamp(0, F - 1)
+    obs_valid = (obs_kf >= 0) & (obs_kf != slots[:, None, None])
+    obs_level = state.kf_level[obs_kf.long().clamp(0, K - 1), obs_ft]
+    fine = obs_valid & (obs_level <= own_level[..., None] + 1)
+    n_fine = torch.sum(fine, dim=-1)
+    redundant = mp_ok & (n_fine >= cfg.mapping.kf_cull_min_obs)
+    n_tracked = torch.sum(mp_ok, dim=-1)
+    ratio = torch.sum(redundant, dim=-1) / n_tracked.clamp_min(1)
+    if single:
+        return ratio[0], n_tracked[0]
+    return ratio, n_tracked
+
+
+@torch.no_grad()
+def erase_keyframe_step(state: ms.MapState, kf_slot):
+    """SetBadFlag: drop the keyframe, detach its observations, reattach its
+    spanning-tree children to its parent. kf_slot is a host int or a 0-d
+    tensor on the device (no host read either way); K, one past the last
+    slot, erases nothing."""
+    K, F, P, O = state.caps
+    dev = state.kf_mp.device
+    if not torch.is_tensor(kf_slot):
+        kf_slot = torch.full((), kf_slot, dtype=torch.int64, device=dev)
+    kf_slot = kf_slot.long()
+    hit = torch.arange(K, device=dev) == kf_slot       # all False for K
+    # (index_select: indexing with a 0-d device tensor reads it back)
+    parent = state.kf_parent.index_select(
+        0, kf_slot.clamp(0, K - 1).reshape(1))[0]
+    children = state.kf_parent == kf_slot
+    kf_parent = torch.where(children, parent, state.kf_parent)
+    return state._replace(
+        kf_valid=state.kf_valid & ~hit,
+        kf_mp=_none_where(~hit[:, None], state.kf_mp),
+        kf_feat_valid=state.kf_feat_valid & ~hit[:, None],
+        kf_parent=_none_where(~hit, kf_parent),
+        kf_seq=_none_where(~hit, state.kf_seq),
+        covis=torch.where(hit[:, None] | hit[None, :],
+                          torch.zeros_like(state.covis), state.covis),
+    )
+
+
+@torch.no_grad()
+def keyframe_culling(state: ms.MapState, center_kf: int, cfg: SlamConfig,
+                     max_cull: int = 3):
+    """Cull redundant covisibility neighbors of a fresh keyframe, one at a
+    time on the host (the keyframe pipeline uses steps._kf_culling_core,
+    which reads nothing back). Origin keyframes are exempt. Returns (state,
+    culled_slot_list, cull_info) where cull_info maps slot -> (parent_slot,
+    rel_q, rel_t), the pose relative to the spanning-tree parent at cull
+    time, needed to re-chain exported trajectories through erased reference
+    keyframes."""
+    from . import steps
+    row = host_fetch(state.covis[center_kf])
+    fixed = host_fetch(state.kf_fixed_origin)
+    valid = host_fetch(state.kf_valid)
+    culled = []
+    cull_info = {}
+    for k in np.argsort(-row):
+        if len(culled) >= max_cull or row[k] <= 0:
+            break
+        if fixed[k] or not valid[k] or k == center_kf:
+            continue
+        ratio, n_tracked = host_fetch(torch.stack(
+            [a.to(torch.float32) for a in kf_redundancy(state, int(k), cfg)]))
+        if ratio > cfg.mapping.kf_cull_redundancy and n_tracked > 20:
+            parent = int(host_fetch(state.kf_parent[k]))
+            if parent >= 0:
+                rel_q, rel_t = se3.relative(
+                    state.kf_q[k], state.kf_t[k],
+                    state.kf_q[parent], state.kf_t[parent])
+                cull_info[int(k)] = (parent, host_fetch(rel_q),
+                                     host_fetch(rel_t))
+            state = erase_keyframe_step(state, int(k))
+            culled.append(int(k))
+    if culled:
+        state = rebuild_observations(state)
+        state = steps.recompute_covisibility(state)
+    return state, culled, cull_info

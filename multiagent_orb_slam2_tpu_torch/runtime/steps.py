@@ -23,6 +23,7 @@ from ..geometry import camera, se3
 from ..mapstate import state as ms
 from ..ops import matchers
 from ..ops.frame import FrameFeatures
+from ..optim import ba as ba_mod
 from ..optim import pose_opt
 from . import mapping
 from ..utils.torch_ops import (add_drop, const_tensor, fill_at,
@@ -30,10 +31,6 @@ from ..utils.torch_ops import (add_drop, const_tensor, fill_at,
                                set_drop2, top_k_stable)
 
 NONE = ms.NONE
-
-_ROADMAP_BA = ("local bundle adjustment is not ported yet: ROADMAP.md queue "
-               "1, next slice (optim/ba.py, K2 prep kernel, K3 PCG kernel, "
-               "local_ba_step, _kf_culling_core)")
 
 
 def _none_where(ok, val):
@@ -333,9 +330,74 @@ def create_keyframe_step(state: ms.MapState, feats: FrameFeatures, q, t,
                                  agent, map_id, kf_slot, mp_base, cfg)
 
 
+# ---------------------------------------------------------------------------
+# Local bundle adjustment over the covisibility window
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
 def local_ba_step(state: ms.MapState, center_kf: int, cfg: SlamConfig,
                   n_iters1: int = 5, n_iters2: int = 10):
-    raise NotImplementedError(_ROADMAP_BA)
+    """Local BA (LocalBundleAdjustment): optimize the 1-ring covisibility
+    window of center_kf and all points they observe; other observing KFs
+    participate as fixed; origin KFs always fixed. Two stages with chi2
+    outlier erasure in between, as the reference does.
+    """
+    K, F, P, O = state.caps
+    window = fill_at(ms.covis_neighbors_mask(state, center_kf, 1).clone(),
+                     center_kf, True)
+    window = window & state.kf_valid
+
+    # points observed by window KFs
+    obs_sel = _none_where(window[:, None].expand_as(state.kf_mp), state.kf_mp)
+    point_mask = mask_from_ids(obs_sel, P) & state.mp_valid
+
+    # fixed poses: valid KFs outside the window that observe selected points,
+    # plus origin anchors; invalid KFs excluded entirely
+    fixed = (state.kf_valid & ~window) | state.kf_fixed_origin
+
+    obs_kf = state.mp_obs_kf
+    obs_feat = state.mp_obs_feat.long().clamp(0, F - 1)
+    kf_c = obs_kf.long().clamp(0, K - 1)
+    uv = state.kf_xy[kf_c, obs_feat]
+    ur = state.kf_right[kf_c, obs_feat]
+    level = state.kf_level[kf_c, obs_feat]
+    sf = _scale_factors(cfg, obs_kf.device)
+    inv_sigma2 = 1.0 / sf[level.long()] ** 2
+    obs_mask = (obs_kf >= 0) & point_mask[:, None] & state.kf_valid[kf_c]
+
+    prob = ba_mod.BAProblem(
+        q=state.kf_q, t=state.kf_t,
+        pose_valid=state.kf_valid,
+        pose_fixed=fixed,
+        pw=state.mp_pos,
+        point_valid=point_mask,
+        obs_kf=_none_where(obs_mask, obs_kf),
+        obs_uvr=torch.cat([uv, ur[..., None]], dim=-1),
+        obs_inv_sigma2=inv_sigma2,
+        obs_stereo=ur >= 0,
+        obs_mask=obs_mask,
+    )
+    res = ba_mod.ba_solve_fast(prob, cfg.camera, n_iters=n_iters1,
+                               use_huber=True, chunk=_ba_chunk(P))
+    keep = ba_mod.outlier_mask(res, prob)
+    prob2 = prob._replace(q=res.q, t=res.t, pw=res.pw, obs_mask=keep)
+    res2 = ba_mod.ba_solve_fast(prob2, cfg.camera, n_iters=n_iters2,
+                                use_huber=False, chunk=_ba_chunk(P))
+    keep2 = ba_mod.outlier_mask(res2, prob2)
+
+    # write back optimized poses/points
+    moved = (window & ~fixed)[:, None]
+    state = state._replace(
+        kf_q=torch.where(moved, res2.q, state.kf_q),
+        kf_t=torch.where(moved, res2.t, state.kf_t),
+        mp_pos=torch.where(point_mask[:, None], res2.pw, state.mp_pos),
+    )
+    # erase outlier observations (the reference erases chi2 > th obs pairs)
+    return erase_observations(state, prob.obs_mask & ~keep2)
+
+
+def _ba_chunk(P: int) -> int:
+    return max(min(P, 2048), P // 32)
 
 
 def erase_observations(state: ms.MapState, erase_mask):
@@ -575,17 +637,21 @@ def keyframe_pipeline_step(state: ms.MapState, feats: FrameFeatures, q, t,
 
       CreateNewKeyFrame -> CreateNewMapPoints over the top covisible
       neighbors -> MapPointCulling -> SearchInNeighbors (Fuse both
-      directions) -> [LocalBundleAdjustment -> KeyFrameCulling, not ported].
+      directions) -> LocalBundleAdjustment -> KeyFrameCulling.
 
     The host reads the device once inside (the neighbour list, so that only
-    neighbours that exist are visited) and the caller once (the new-point
-    count).
+    neighbours that exist are visited); the caller reads the new-point count
+    and, after local BA, the cull report.
+
+    Keyframe-culling semantics differ from the reference in one documented
+    way: the reference erases redundant keyframes one at a time, recomputing
+    redundancy in between; this computes redundancy for all candidates from
+    the same post-BA state and erases up to 3 at once.
 
     Returns (state, frame_mp [F], q_kf, t_kf, n_new_points,
-             cull_vec [3, 9] float32, all -1: nothing is culled without BA).
+             cull_vec [3, 9] float32 rows (slot, parent, rel_q(4), rel_t(3)),
+             slot/parent = -1 when unused).
     """
-    if run_local_ba:
-        raise NotImplementedError(_ROADMAP_BA)
     K, F, P, O = state.caps
     dev = state.kf_q.device
     mono = cfg.sensor == 0
@@ -645,7 +711,15 @@ def keyframe_pipeline_step(state: ms.MapState, feats: FrameFeatures, q, t,
     state = ms.update_point_normals(state, touched, cfg.orb.scale_factor,
                                     cfg.orb.n_levels)
 
+    # 4. local BA + keyframe culling
     cull_vec = torch.full((3, 9), -1.0, dtype=torch.float32, device=dev)
+    if run_local_ba:
+        state = local_ba_step(state, kf_slot, cfg)
+        state = recompute_covisibility(state)
+        state, cull_vec = _kf_culling_core(state, kf_slot, cfg)
+        state = mapping.rebuild_observations(state)
+        state = recompute_covisibility(state)
+
     frame_mp_row = state.kf_mp[kf_slot]
     n_new = (cursor - mp_base).to(torch.int32)
     return (state, frame_mp_row, state.kf_q[kf_slot], state.kf_t[kf_slot],
@@ -698,3 +772,47 @@ def _create_keyframe_core(state, feats, q, t, frame_mp, frame_id, agent,
     state = ms.update_point_normals(state, touched, cfg.orb.scale_factor,
                                     cfg.orb.n_levels)
     return state, frame_mp2, torch.sum(ok.to(torch.int32))
+
+
+def _kf_culling_core(state, center_kf: int, cfg, max_cull: int = 3,
+                     n_cand: int = 10):
+    """KeyFrameCulling without a host read: rank the center's covisible
+    neighbors by weight, compute the 90%-redundancy ratio for the top n_cand,
+    erase up to max_cull passing candidates, and report (slot, parent, rel
+    pose) rows for trajectory re-chaining."""
+    K, F, P, O = state.caps
+    row = fill_at(state.covis[center_kf].clone(), center_kf, 0)
+    top_w, top_i = top_k_stable(row, min(n_cand, K))
+    cand_ok = (top_w > 0) & state.kf_valid[top_i] \
+        & ~state.kf_fixed_origin[top_i]
+
+    ratio, n_tracked = mapping.kf_redundancy(state, top_i, cfg)
+    elig = cand_ok & (ratio > cfg.mapping.kf_cull_redundancy) \
+        & (n_tracked > 20)
+    rank = torch.cumsum(elig.to(torch.int32), 0)
+    cull = elig & (rank <= max_cull)
+
+    # cull report: relative pose to the spanning-tree parent (mTcp)
+    parent = state.kf_parent[top_i]
+    par_c = parent.long().clamp(0, K - 1)
+    rel_q, rel_t = se3.relative(state.kf_q[top_i], state.kf_t[top_i],
+                                state.kf_q[par_c], state.kf_t[par_c])
+    n = cull.shape[0]
+    sel = first_true_indices(cull, max_cull, n)
+    sel_c = sel.clamp(0, n - 1)
+    used = sel < n
+    slot_out = torch.where(used, top_i[sel_c], torch.full_like(sel, -1))
+    usedf = used[:, None].to(torch.float32)
+    cull_vec = torch.cat([
+        slot_out[:, None].to(torch.float32),
+        torch.where(used, parent[sel_c].long(),
+                    torch.full_like(sel, -1))[:, None].to(torch.float32),
+        rel_q[sel_c] * usedf,
+        rel_t[sel_c] * usedf], dim=-1)               # [max_cull, 9]
+
+    for i in range(max_cull):
+        # K = out of bounds -> no-op
+        state = mapping.erase_keyframe_step(
+            state, torch.where(used[i], slot_out[i],
+                               torch.full_like(slot_out[i], K)))
+    return state, cull_vec

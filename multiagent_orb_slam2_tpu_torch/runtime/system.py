@@ -1,11 +1,12 @@
 """Per-agent System facade: tracking + trajectory export.
 
 Counterpart of the JAX package's ``runtime/system.py`` (reference System).
-Ported: stereo tracking without local bundle adjustment and the trajectory
-writers. Loop closing, relocalization, the keyframe database, RGB-D and
-monocular entry points and map checkpoints raise NotImplementedError naming
-their ROADMAP.md item. A tracker that gets LOST stays LOST (it dead-reckons
-on the motion model), since relocalization is what would recover it.
+Ported: stereo tracking with local bundle adjustment and keyframe culling,
+and the trajectory writers. Loop closing, relocalization, the keyframe
+database, RGB-D and monocular entry points and map checkpoints raise
+NotImplementedError naming their ROADMAP.md item. A tracker that gets LOST
+stays LOST (it dead-reckons on the motion model), since relocalization is
+what would recover it.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from .tracker import (SharedMap, Tracker, _np_inverse, _np_normalize)
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, '{item}'")
+        f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
 
 
 class System:
@@ -34,17 +35,17 @@ class System:
                  device=torch.device("cuda")):
         if enable_loop_closing:
             raise _not_ported("System(enable_loop_closing=True)",
-                              "Loop closing and place recognition")
+                              "11, 'Loop closing and place recognition'")
         if vocab is not None:
             raise _not_ported("a vocabulary (keyframe database "
                               "registration)",
-                              "Loop closing and place recognition")
+                              "11, 'Loop closing and place recognition'")
         self.cfg = cfg
         self.vocab = None
         self.device = torch.device(device)
         self.shared = shared or SharedMap(cfg, device=self.device)
         self.tracker = Tracker(cfg, self.shared, agent=agent, map_id=agent,
-                               run_local_ba=False, device=self.device)
+                               device=self.device)
         self.enable_loop_closing = False
         self.run_gba = False
         self.n_relocalizations = 0
@@ -58,11 +59,11 @@ class System:
 
     def track_rgbd(self, img, depth, frame_id=None):
         raise _not_ported("System.track_rgbd",
-                          "Mono, RGB-D and relocalization")
+                          "13, 'Mono, RGB-D and relocalization'")
 
     def track_mono(self, img, frame_id=None):
         raise _not_ported("System.track_mono",
-                          "Mono, RGB-D and relocalization")
+                          "13, 'Mono, RGB-D and relocalization'")
 
     def activate_localization_mode(self):
         self.tracker.set_localization_mode(True)
@@ -115,10 +116,12 @@ class System:
         traj_mod.write_tum(path, rows)
 
     def save_map(self, path):
-        raise _not_ported("System.save_map", "Tail (mapstate/checkpoint.py)")
+        raise _not_ported("System.save_map",
+                          "15, 'Tail' (mapstate/checkpoint.py)")
 
     def load_map(self, path):
-        raise _not_ported("System.load_map", "Tail (mapstate/checkpoint.py)")
+        raise _not_ported("System.load_map",
+                          "15, 'Tail' (mapstate/checkpoint.py)")
 
     def shutdown(self):
         self._process_keyframes()

@@ -6,9 +6,10 @@ never touches image or descriptor data: it sequences the steps of
 ``runtime.steps`` and makes the small-scalar decisions (state transitions,
 keyframe need, slot allocation).
 
-Ported: the stereo path without local bundle adjustment. Monocular
-bootstrap, localization-only mode and local BA raise NotImplementedError
-naming their ROADMAP.md item.
+Ported: the stereo path, with local bundle adjustment and keyframe culling
+on every keyframe once the map has three. Monocular and RGB-D tracking and
+localization-only mode raise NotImplementedError naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -186,13 +187,11 @@ class Tracker:
     def __init__(self, cfg: SlamConfig, shared: SharedMap, agent: int = 0,
                  map_id: int = 0, run_local_ba: bool = True,
                  device=torch.device("cuda")):
-        if run_local_ba:
-            raise NotImplementedError(
-                "Tracker(run_local_ba=True): " + steps._ROADMAP_BA)
         if cfg.sensor != Sensor.STEREO:
             raise NotImplementedError(
                 "only Sensor.STEREO is ported; monocular and RGB-D tracking "
-                "are ROADMAP.md queue 1, 'Mono, RGB-D and relocalization'")
+                "are ROADMAP.md queue 1 item 13, 'Mono, RGB-D and "
+                "relocalization'")
         self.cfg = cfg
         self.shared = shared
         self.device = torch.device(device)
@@ -232,12 +231,12 @@ class Tracker:
 
     def track_mono(self, img, frame_id: Optional[int] = None):
         raise NotImplementedError(
-            "monocular tracking is not ported yet: ROADMAP.md queue 1, "
-            "'Mono, RGB-D and relocalization'")
+            "monocular tracking is not ported yet: ROADMAP.md queue 1 item "
+            "13, 'Mono, RGB-D and relocalization'")
 
     def track_rgbd(self, img, depth, frame_id: Optional[int] = None):
         raise NotImplementedError(
-            "RGB-D tracking is not ported yet: ROADMAP.md queue 1, "
+            "RGB-D tracking is not ported yet: ROADMAP.md queue 1 item 13, "
             "'Mono, RGB-D and relocalization'")
 
     def track_features(self, feats: frame_mod.FrameFeatures,
@@ -326,8 +325,8 @@ class Tracker:
         if on:
             raise NotImplementedError(
                 "localization-only mode (_track_localization_only, VO "
-                "points) is not ported yet: ROADMAP.md queue 1, 'Mono, "
-                "RGB-D and relocalization'")
+                "points) is not ported yet: ROADMAP.md queue 1 item 13, "
+                "'Mono, RGB-D and relocalization'")
         self.only_tracking = False
 
     # -- internals ---------------------------------------------------------
@@ -386,16 +385,18 @@ class Tracker:
                             and c2))
 
     def _create_keyframe(self, feats, tr):
-        """KF insert + triangulation + local mapping
-        (steps.keyframe_pipeline_step) with two device fetches: the
-        neighbour list inside the step and the new-point count here."""
+        """KF insert + triangulation + local mapping + local BA + culling
+        (steps.keyframe_pipeline_step) with three device fetches: the
+        neighbour list inside the step, the new-point count and, when local
+        BA ran, the cull report."""
         sh = self.shared
         kf_slot = sh.alloc_kf()
+        run_ba = bool(self.run_local_ba and sh.n_kf >= 3)
         (sh.state, frame_mp, q_kf, t_kf, n_new,
-         _cull_vec) = steps.keyframe_pipeline_step(
+         cull_vec) = steps.keyframe_pipeline_step(
             sh.state, feats, tr.q, tr.t, tr.frame_mp, self.frame_id,
             self.agent, self.map_id, kf_slot, sh.mp_base(), self.cfg,
-            False)
+            run_ba)
         n_comp = sh.n_compactions
         sh.commit_mp(int(host_fetch(n_new)))
         if sh.n_compactions != n_comp:
@@ -406,6 +407,15 @@ class Tracker:
         self.ref_kf = kf_slot
         self.last_kf_frame = self.frame_id
         self.new_kf_slots.append(kf_slot)
+        if run_ba:
+            for row in host_fetch(cull_vec):
+                slot = int(row[0])
+                if slot < 0:
+                    continue
+                parent = int(row[1])
+                self.culled_kf_slots.append(slot)
+                sh.note_culled(slot, parent if parent >= 0 else None,
+                               row[2:6].copy(), row[6:9].copy())
         return frame_mp, q_kf, t_kf
 
     def _record(self, lost: bool):

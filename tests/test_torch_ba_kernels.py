@@ -1,0 +1,308 @@
+"""The port's bundle-adjustment pieces that hold CUDA kernels, on the CPU:
+
+- optim/ba_kernels.py (obs_terms_e, cost_e, sym3_inv, pcg_solve) against the
+  JAX functions of the same names;
+- optim/ba_prep.py: the plain version of the Schur-prep kernel against the
+  Pallas body of ba_pallas.prep_terms run in interpret mode, and against its
+  XLA twin (obs_terms_e + sym3_inv);
+- optim/pcg.py: the plain version of the PCG kernel against the Pallas body
+  of pcg_solve_pallas in interpret mode and against pcg_solve.
+
+Inputs come from a seed through numpy and go to both packages. Tolerances are
+relative to each output's scale (its largest magnitude): 2e-5 for the
+per-observation terms (float32, the two frameworks contract multiply-adds
+differently and world coordinates of tens of metres cancel against depths of
+a few metres; found 1e-5), 5e-4 against the interpreted Pallas body (found
+up to 1.1e-4 in Wb, Y, Ht, bt and Ybp: the interpreter fuses differently
+again), 1e-4 for PCG after 32 iterations (found: 2e-6).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from multiagent_orb_slam2_tpu.geometry.camera import Intrinsics as JIntr
+from multiagent_orb_slam2_tpu.optim import ba_kernels as jbk
+from multiagent_orb_slam2_tpu_torch.io import ba_problem
+from multiagent_orb_slam2_tpu_torch.optim import ba_kernels as tbk
+from multiagent_orb_slam2_tpu_torch.optim import ba_prep, pcg
+
+from torch_parity import interpreted_pallas_call
+
+K, P, M = 8, 1024, 8
+D2M, D2S = 5.991, 7.815
+LAM = 1e-3
+PALLAS_TOL = 5e-4
+
+
+def rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def prob():
+    """A seeded problem with a stereo / mono mix, per-level information,
+    masked slots, an invalid point and an unset pose index; numpy fields plus
+    the slot-major workspace of the port."""
+    fields, cam = ba_problem.build_problem(K, P, M, seed=5, active_share=0.8)
+    rng = np.random.default_rng(6)
+    fields["obs_stereo"] = rng.random((P, M)) < 0.7
+    fields["obs_inv_sigma2"] = (1.0 / 1.2 ** (2 * rng.integers(0, 8, (P, M)))
+                                ).astype(np.float32)
+    fields["point_valid"][5] = False
+    fields["obs_kf"][7, 2] = -1
+    t = {k: torch.from_numpy(np.array(v)) for k, v in fields.items()}
+    ws = ba_prep.prepare(t["obs_kf"], t["obs_uvr"], t["obs_inv_sigma2"],
+                         t["obs_stereo"], t["obs_mask"], t["point_valid"], K)
+    # point-major E = P * M arrays, as the E-major functions take them
+    active = (fields["obs_mask"] & (fields["obs_kf"] >= 0)
+              & fields["point_valid"][:, None])
+    e = dict(kf=np.clip(fields["obs_kf"], 0, K - 1).reshape(-1),
+             uvr=fields["obs_uvr"].transpose(2, 0, 1).reshape(3, -1),
+             isig=fields["obs_inv_sigma2"].reshape(-1),
+             stereo=fields["obs_stereo"].reshape(-1),
+             active=active.reshape(-1).astype(np.float32))
+    return dict(fields=fields, cam=cam, jcam=JIntr(*cam), ws=ws, e=e,
+                active=active)
+
+
+def _e_args(prob, to):
+    e, f = prob["e"], prob["fields"]
+    return [to(e[k]) for k in ("kf", "uvr", "isig", "stereo", "active")] \
+        + [to(f[k]) for k in ("q", "t", "pw")]
+
+
+@pytest.fixture(scope="module")
+def jax_terms(prob):
+    return {h: jbk.obs_terms_e(*_e_args(prob, jnp.asarray), prob["jcam"],
+                               D2M, D2S, h) for h in (True, False)}
+
+
+@pytest.mark.parametrize("use_huber", [True, False])
+@pytest.mark.parametrize("field", ["r", "Jc", "Jp", "w", "chi2", "cost"])
+def test_obs_terms_e_matches_jax(prob, jax_terms, field, use_huber):
+    tt = tbk.obs_terms_e(*_e_args(prob, torch.from_numpy), prob["cam"], D2M,
+                         D2S, use_huber)
+    want = getattr(jax_terms[use_huber], field)
+    assert tuple(getattr(tt, field).shape) == tuple(want.shape)
+    assert rel_err(getattr(tt, field).numpy(), want) <= 2e-5
+
+
+@pytest.mark.parametrize("use_huber", [True, False])
+def test_cost_e_matches_jax(prob, use_huber):
+    cj, chi2j = jbk.cost_e(*_e_args(prob, jnp.asarray), prob["jcam"], D2M,
+                           D2S, use_huber)
+    ct, chi2t = tbk.cost_e(*_e_args(prob, torch.from_numpy), prob["cam"],
+                           D2M, D2S, use_huber)
+    assert rel_err(ct.numpy(), cj) <= 2e-5
+    assert rel_err(chi2t.numpy(), chi2j) <= 2e-5
+
+
+def test_sym3_inv_matches_jax():
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(64, 3, 3)).astype(np.float32)
+    H = A @ A.transpose(0, 2, 1)
+    H[3] = 0.0                                  # a point without observations
+    comps = [H[:, 0, 0], H[:, 0, 1], H[:, 0, 2], H[:, 1, 1], H[:, 1, 2],
+             H[:, 2, 2]]
+    want = jbk.sym3_inv(tuple(jnp.asarray(c) for c in comps), LAM)
+    got = tbk.sym3_inv(tuple(torch.from_numpy(c) for c in comps), LAM)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
+    # a damped inverse indeed: (H + lam diag H + 1e-8 I) Hinv = I
+    g = [c.numpy().astype(np.float64) for c in got]
+    Hi = np.stack([np.stack([g[0], g[1], g[2]], -1),
+                   np.stack([g[1], g[3], g[4]], -1),
+                   np.stack([g[2], g[4], g[5]], -1)], -2)
+    Hd = H.astype(np.float64) + np.eye(3) * (LAM * np.einsum("pii->pi", H)
+                                             + 1e-8)[:, None, :]
+    ok = np.linalg.cond(Hd) < 1e4
+    ok[3] = False           # determinant under the 1e-20 guard: not inverted
+    assert ok.sum() > 20
+    np.testing.assert_allclose((Hd @ Hi)[ok], np.broadcast_to(
+        np.eye(3), Hi.shape)[ok], atol=1e-3)
+
+
+def _spd_system(seed, n_poses=8, cond=50.0):
+    """A dense SPD system with strong 6x6 diagonal blocks."""
+    rng = np.random.default_rng(seed)
+    D = 6 * n_poses
+    A = rng.normal(size=(D, D))
+    S = A @ A.T / D + np.diag(rng.uniform(1.0, cond, D))
+    rhs = rng.normal(size=D)
+    blocks = np.stack([S[6 * k:6 * k + 6, 6 * k:6 * k + 6]
+                       for k in range(n_poses)])
+    f32 = np.float32
+    return (S.astype(f32), rhs.astype(f32),
+            np.linalg.inv(blocks).astype(f32),
+            (np.linalg.solve(S, rhs) * 0.7).astype(f32))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_pcg_solve_matches_jax_and_solves(warm):
+    S, rhs, Dinv, x0 = _spd_system(1)
+    x0 = x0 if warm else None
+    want = jbk.pcg_solve(jnp.asarray(S), jnp.asarray(rhs), jnp.asarray(Dinv),
+                         32, None if x0 is None else jnp.asarray(x0))
+    got = tbk.pcg_solve(torch.from_numpy(S), torch.from_numpy(rhs),
+                        torch.from_numpy(Dinv), 32,
+                        None if x0 is None else torch.from_numpy(x0))
+    assert rel_err(got.numpy(), want) <= 1e-4
+    exact = np.linalg.solve(S.astype(np.float64), rhs.astype(np.float64))
+    assert rel_err(got.numpy(), exact) <= 1e-4
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_plain_pcg_matches_interpreted_pallas_body(warm):
+    """D = 48: the dispatcher on CPU tensors (the plain version) against
+    pcg_solve_pallas with its kernel body run by the Pallas interpreter."""
+    S, rhs, Dinv, x0 = _spd_system(2)
+    x0 = x0 if warm else None
+    with interpreted_pallas_call():
+        want = jbk.pcg_solve_pallas(
+            jnp.asarray(S), jnp.asarray(rhs), jnp.asarray(Dinv), 32,
+            None if x0 is None else jnp.asarray(x0))
+    before = pcg.pcg_solve.launches
+    got = pcg.pcg_solve(torch.from_numpy(S), torch.from_numpy(rhs),
+                        torch.from_numpy(Dinv), 32,
+                        None if x0 is None else torch.from_numpy(x0))
+    assert pcg.pcg_solve.launches == before     # CPU tensors launch nothing
+    assert rel_err(got.numpy(), want) <= 1e-4
+
+
+@pytest.fixture(scope="module")
+def plain_prep(prob):
+    f = prob["fields"]
+    before = ba_prep.prep_terms.launches
+    out = ba_prep.prep_terms(
+        prob["ws"], torch.from_numpy(f["q"]), torch.from_numpy(f["t"]),
+        torch.from_numpy(f["pw"]), torch.tensor([LAM]), prob["cam"], D2M, D2S,
+        True)
+    assert ba_prep.prep_terms.launches == before   # CPU tensors launch nothing
+    return out
+
+
+@pytest.fixture(scope="module")
+def pallas_prep(prob):
+    """ba_pallas.prep_terms (pb = 1024 divides P) with its kernel body run by
+    the Pallas interpreter, on the slot-major inputs the JAX package builds."""
+    from multiagent_orb_slam2_tpu.optim import ba_pallas as jbp
+    f, ws = prob["fields"], prob["ws"]
+    pose_t = np.concatenate([f["q"].T, f["t"].T], 0)               # [7, K]
+    g = pose_t[:, ws.kf.numpy().reshape(-1)].reshape(7, M, P)
+    with interpreted_pallas_call():
+        out = jbp.prep_terms(
+            LAM, jnp.asarray(g), jnp.asarray(ws.uvr.numpy()),
+            jnp.asarray(ws.isig.numpy()),
+            jnp.asarray((ws.flags.numpy() >= 2).astype(np.float32)),
+            jnp.asarray(ws.active.numpy()), jnp.asarray(f["pw"].T),
+            prob["jcam"], D2M, D2S, True)
+    return [np.asarray(a) for a in out]
+
+
+@pytest.mark.parametrize("name", ["Wb", "Y", "Ht", "bt", "Ybp", "hinv6", "bp",
+                                  "cost", "chi2"])
+def test_plain_prep_matches_interpreted_pallas_body(prob, plain_prep,
+                                                    pallas_prep, name):
+    Wb, Y, Ht, bt, Ybp, hinv6, bp, cost, chi2 = pallas_prep
+    t = plain_prep
+    act = prob["active"].T                                     # [M, P]
+    if name == "Ht":
+        rows = [a * 6 + b for a, b in ba_prep.TRIU6]
+        got, want = t.diag[:21].numpy(), Ht[rows]
+        # and the Pallas body's Ht is symmetric, so 21 rows carry all of it
+        assert np.array_equal(Ht.reshape(6, 6, M, P),
+                              Ht.reshape(6, 6, M, P).transpose(1, 0, 2, 3))
+    elif name == "bt":
+        got, want = t.diag[21:27].numpy(), bt
+    elif name == "Ybp":
+        got, want = t.diag[27:33].numpy(), Ybp
+    elif name == "cost":
+        got, want = t.cost.numpy().sum(), cost
+    elif name == "chi2":
+        got, want = t.chi2.numpy(), chi2 * act   # the port zeroes unused slots
+    else:
+        got, want = getattr(t, name).numpy(), locals()[name]
+    assert np.shape(got) == np.shape(want)
+    assert rel_err(got, want) <= PALLAS_TOL
+    if name in ("Wb", "Y"):
+        assert not got[:, ~act].any()           # unused slots hold zeros
+
+
+def test_plain_prep_matches_xla_twin(prob, plain_prep, jax_terms):
+    """Against obs_terms_e + sym3_inv of the JAX package: the point blocks
+    and Wb = Jc^T w Jp rebuilt from the twin's Jacobians in float64."""
+    tm = jax_terms[True]
+    Jc, Jp, r, w = (np.asarray(a, np.float64) for a in (tm.Jc, tm.Jp, tm.r,
+                                                        tm.w))
+    JpP, wP = Jp.reshape(3, 3, P, M), w.reshape(P, M)
+    H = np.einsum("rapm,rbpm,pm->abp", JpP, JpP, wP)
+    H6 = tuple(jnp.asarray(H[a, b], jnp.float32)
+               for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)))
+    hinv = np.stack([np.asarray(c) for c in jbk.sym3_inv(H6, LAM)])
+    assert rel_err(plain_prep.hinv6.numpy(), hinv) <= 1e-4
+    bp = -np.einsum("rbpm,rpm,pm->bp", JpP, r.reshape(3, P, M), wP)
+    assert rel_err(plain_prep.bp.numpy(), bp) <= 2e-5
+    Wb = np.einsum("rae,rce,e->cae", Jc, Jp, w).reshape(18, P, M)
+    assert rel_err(plain_prep.Wb.numpy(), Wb.transpose(0, 2, 1)) <= 2e-5
+    bt = -np.einsum("rae,re,e->ae", Jc, r, w).reshape(6, P, M)
+    assert rel_err(plain_prep.diag[21:27].numpy(),
+                   bt.transpose(0, 2, 1)) <= 2e-5
+    assert rel_err(plain_prep.cost.numpy().sum(), tm.cost) <= 2e-5
+
+
+def test_plain_prep_cost_only_mode(prob, plain_prep):
+    f = prob["fields"]
+    out = ba_prep.prep_terms(
+        prob["ws"], torch.from_numpy(f["q"]), torch.from_numpy(f["t"]),
+        torch.from_numpy(f["pw"]), None, prob["cam"], D2M, D2S, True,
+        cost_only=True)
+    assert out.Wb is None and out.diag is None
+    np.testing.assert_allclose(out.cost.numpy(), plain_prep.cost.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out.chi2.numpy(), plain_prep.chi2.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the BA kernels have no CPU mode; "
+                    "chip_smoke.py holds them against their plain versions")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_prep_kernel_matches_plain_on_the_card(prob, cuda_device):
+    """On the card: csrc/ba_prep.cu against the plain version on the same
+    CUDA tensors, 1e-3 of each output's scale (measured 3e-4: one-ulp
+    differences of fused multiply-adds, amplified where world coordinates
+    cancel against small depths)."""
+    f = prob["fields"]
+    t = {k: torch.from_numpy(np.array(v)).to(cuda_device)
+         for k, v in f.items()}
+    ws = ba_prep.prepare(t["obs_kf"], t["obs_uvr"], t["obs_inv_sigma2"],
+                         t["obs_stereo"], t["obs_mask"], t["point_valid"], K)
+    lam = torch.full((1,), LAM, device=cuda_device)
+    args = (ws, t["q"], t["t"], t["pw"], lam, prob["cam"], D2M, D2S, True)
+    before = ba_prep.prep_terms.launches
+    k = ba_prep.prep_terms(*args)
+    assert ba_prep.prep_terms.launches == before + 1
+    p = ba_prep._prep_terms_plain(*args)
+    for name, a, b in zip(k._fields, k, p):
+        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_pcg_kernel_matches_plain_on_the_card(cuda_device):
+    """On the card: csrc/pcg.cu against ba_kernels.pcg_solve on a well
+    conditioned D = 48 system that 32 iterations solve: 1e-4 of x's scale."""
+    S, rhs, Dinv, x0 = (torch.from_numpy(a).to(cuda_device)
+                        for a in _spd_system(3))
+    for warm in (None, x0):
+        before = pcg.pcg_solve.launches
+        k = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
+        assert pcg.pcg_solve.launches == before + 1
+        p = tbk.pcg_solve(S, rhs, Dinv, 32, warm)
+        assert rel_err(k.cpu().numpy(), p.cpu().numpy()) <= 1e-4

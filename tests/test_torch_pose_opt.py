@@ -1,8 +1,6 @@
 """The port's pose-only optimizer (optim/pose_opt.py, the module that holds
 the CUDA kernel): its plain PyTorch version against (a) the JAX package's XLA
 twin and (b) the Pallas kernel body itself run in interpret mode."""
-import functools
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,6 +15,8 @@ from multiagent_orb_slam2_tpu_torch import convert
 from multiagent_orb_slam2_tpu_torch.config import OptimizerConfig as TOptCfg
 from multiagent_orb_slam2_tpu_torch.geometry.camera import Intrinsics as TIntr
 from multiagent_orb_slam2_tpu_torch.optim import pose_opt as tpo
+
+from torch_parity import interpreted_pallas_call
 
 JCAM = JIntr(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=45.0)
 TCAM = TIntr(*JCAM)
@@ -124,23 +124,10 @@ def test_plain_matches_xla_twin(case):
 @pytest.fixture(scope="module")
 def interpreted_pallas():
     """pose_optimize_pallas with the kernel body run by the Pallas
-    interpreter: pallas_call is wrapped to add interpret=True and drop the
-    TPU compiler parameters before the function is first traced."""
-    import jax.experimental.pallas as pl
+    interpreter (torch_parity.interpreted_pallas_call)."""
     from multiagent_orb_slam2_tpu.optim import pose_opt_pallas as jpp
-    real = pl.pallas_call
-
-    @functools.wraps(real)
-    def interpreted(*args, **kwargs):
-        kwargs.pop("compiler_params", None)
-        kwargs["interpret"] = True
-        return real(*args, **kwargs)
-
-    pl.pallas_call = interpreted
-    try:
+    with interpreted_pallas_call():
         yield jpp.pose_optimize_pallas
-    finally:
-        pl.pallas_call = real
 
 
 @pytest.mark.parametrize("case", ["stereo", "mixed_stereo_mono",

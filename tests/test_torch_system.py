@@ -1,7 +1,9 @@
 """Host-side behaviour of the port: System facade, what raises
-NotImplementedError, slot bookkeeping, point compaction, reset, and the small
-tensor helpers."""
+NotImplementedError, slot bookkeeping, point compaction, reset, the small
+tensor helpers, and the tracker with local bundle adjustment against the JAX
+tracker."""
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -34,10 +36,18 @@ def test_config_from_dict_equals_jax_config():
 def test_unported_paths_raise(what):
     """Nothing that waits for a later slice degrades silently."""
     shared = ttr.SharedMap(TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "local_ba":
-            ttr.Tracker(TCFG, shared, device="cpu")       # default is BA on
-        elif what == "loop_closing":
+    if what == "local_ba":
+        # ported: local BA is the default of Tracker and System, as in the
+        # JAX package, and System has no argument to turn it off
+        assert ttr.Tracker(TCFG, shared, device="cpu").run_local_ba is True
+        system = tsys.System(TCFG, None, enable_loop_closing=False,
+                             device="cpu")
+        assert system.tracker.run_local_ba is True
+        assert "run_local_ba" not in inspect.signature(
+            tsys.System.__init__).parameters
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        if what == "loop_closing":
             tsys.System(TCFG, None, device="cpu")         # default is on
         elif what == "vocab":
             tsys.System(TCFG, object(), enable_loop_closing=False,
@@ -184,3 +194,64 @@ def test_synthetic_and_trajectory_copies_match_jax_package():
     assert ttraj.ate(est, gt) == jtraj.ate(est, gt)
     np.testing.assert_allclose(ttraj.poses_to_matrices(qt, tt),
                                jtraj.poses_to_matrices(qj, tj), atol=1e-6)
+
+
+@pytest.mark.e2e
+def test_tracker_with_local_ba_matches_jax():
+    """Trackers of both packages with local BA on (the default), 8 corridor
+    frames on features extracted once by the JAX package: four keyframes are
+    spawned with three or more in the map, so four local BAs and cullings
+    run. A 70 % redundancy rule (the default 90 % culls nothing on so short
+    a run) makes both cull keyframes, so the export re-chains through
+    cull_info. Per frame the camera centre within 2 mm (found 7e-5 m), the
+    same keyframe frames, n_kf and n_mp, the same culled slots, exported
+    poses within 1e-3 (found 2e-5)."""
+    import jax.numpy as jnp
+    from multiagent_orb_slam2_tpu.config import MappingConfig
+    from multiagent_orb_slam2_tpu.ops import frame as jframe
+    from multiagent_orb_slam2_tpu.runtime import tracker as jtr
+    from torch_parity import CAM, torch_feats_from_jax
+
+    cfg = CFG.replace(mapping=MappingConfig(kf_cull_redundancy=0.7))
+    tcfg = convert.config_from_dict({**dataclasses.asdict(cfg), "camera": CAM})
+    frames, _ = sequence(12)
+    sj = jtr.SharedMap(cfg)
+    tj = jtr.Tracker(cfg, sj)
+    st = ttr.SharedMap(tcfg, device="cpu")
+    tt = ttr.Tracker(tcfg, st, device="cpu")
+    assert tj.run_local_ba and tt.run_local_ba
+    kf_frames_j, kf_frames_t, n_ba = [], [], 0
+    for i, (left, right) in enumerate(frames[:8]):
+        f = jframe.extract_frame(jnp.asarray(left), cfg,
+                                 right_img=jnp.asarray(right))
+        nj, nt = sj.n_created, st.n_created
+        tj.track_features(f, i)
+        tt.track_features(torch_feats_from_jax(f), i)
+        if sj.n_created > nj:
+            kf_frames_j.append(i)
+        if st.n_created > nt:
+            kf_frames_t.append(i)
+            n_ba += st.n_kf >= 3 and i > 0
+        rj, rt = tj.trajectory[-1], tt.trajectory[-1]
+        assert rj.lost == rt.lost is False, i
+        cj = ttr._np_inverse(rj.q.astype(np.float64), rj.t.astype(np.float64))
+        ct = ttr._np_inverse(rt.q.astype(np.float64), rt.t.astype(np.float64))
+        assert np.linalg.norm(cj[1] - ct[1]) <= 2e-3, i
+        assert rj.ref_kf == rt.ref_kf and rj.ref_uid == rt.ref_uid
+    assert kf_frames_j == kf_frames_t and n_ba >= 2
+    assert (sj.n_kf, sj.n_mp) == (st.n_kf, st.n_mp)
+    assert tt.culled_kf_slots == tj.culled_kf_slots != []
+    assert sorted(st.cull_info) == sorted(sj.cull_info) != []
+    assert st.pending_release == sj.pending_release
+    for uid, (parent, rel_q, rel_t) in st.cull_info.items():
+        assert parent == sj.cull_info[uid][0]
+        np.testing.assert_allclose(rel_q, sj.cull_info[uid][1], atol=1e-4)
+        np.testing.assert_allclose(rel_t, sj.cull_info[uid][2], atol=1e-4)
+    ej, et = tj.export_poses(), tt.export_poses()
+    assert tt.export_fallbacks == tj.export_fallbacks == 0
+    culled_uids = set(st.cull_info)
+    assert any(r.ref_uid in culled_uids for r in tt.trajectory)
+    for (fj, lj, qj, tj_), (ft, lt, qt, tt_) in zip(ej, et):
+        assert (fj, lj) == (ft, lt)
+        np.testing.assert_allclose(qt, qj, atol=1e-3)
+        np.testing.assert_allclose(tt_, tj_, atol=1e-3)

@@ -2,6 +2,7 @@
 (multiagent_orb_slam2_tpu_torch) against the JAX package: the small
 configuration, a rendered stereo sequence, and numpy bridges between the two
 packages' state tuples."""
+import contextlib
 import dataclasses
 import functools
 
@@ -102,10 +103,34 @@ def assert_states_match(jstate, tstate, int_share=1.0, atol=1e-5,
             assert share >= int_share, (name, share)
 
 
+@contextlib.contextmanager
+def interpreted_pallas_call():
+    """While active, `pl.pallas_call` adds interpret=True and drops the TPU
+    compiler parameters, so a function of the JAX package that reaches a
+    Pallas kernel runs the kernel body in the Pallas interpreter on the CPU.
+    Enter it before the function is first traced; nothing in the JAX package
+    changes."""
+    import jax.experimental.pallas as pl
+    real = pl.pallas_call
+
+    @functools.wraps(real)
+    def interpreted(*args, **kwargs):
+        kwargs.pop("compiler_params", None)
+        kwargs["interpret"] = True
+        return real(*args, **kwargs)
+
+    pl.pallas_call = interpreted
+    try:
+        yield
+    finally:
+        pl.pallas_call = real
+
+
 @functools.lru_cache(maxsize=1)
 def port_tracker_after(n_frames: int):
     """The port's tracker (CPU, own feature extraction, no local BA) after
-    the first n_frames of the corridor; also returns the frames' features."""
+    the first n_frames (at most 11) of the corridor; also returns the
+    features of frames 0..n_frames."""
     from multiagent_orb_slam2_tpu_torch.ops import frame as tframe
     from multiagent_orb_slam2_tpu_torch.runtime import tracker as ttr
     frames, _ = sequence(12)

@@ -28,6 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (configuration and camera of the smoke run)
 from multiagent_orb_slam2_tpu_torch.io import synthetic  # noqa: E402
+from multiagent_orb_slam2_tpu_torch.runtime import steps  # noqa: E402
 from multiagent_orb_slam2_tpu_torch.runtime import system as system_mod  # noqa: E402
 
 
@@ -66,6 +67,39 @@ def main():
             system.track_stereo(*frames[i], frame_id=i)
         torch.cuda.synchronize()
     traced_wall_ms = (time.perf_counter() - t0) * 1e3 / args.profiled
+    out = {"card": card, "frames_profiled": args.profiled,
+           "keyframes_in_window": system.shared.n_kf - n_kf_before,
+           "wall_ms_per_frame_untraced_median": wall_ms,
+           "wall_ms_per_frame_traced": traced_wall_ms}
+    out.update(summarize(prof, args.profiled, wall_ms, "frame"))
+    print(json.dumps(out))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    # second window: one local bundle adjustment (what a keyframe adds once
+    # the map has three), on the map as it stands; its result is dropped
+    state, center = system.shared.state, system.tracker.ref_kf
+    ba_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.local_ba_step(state, center, cfg)
+        torch.cuda.synchronize()
+        ba_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps.local_ba_step(state, center, cfg)
+        torch.cuda.synchronize()
+    out = {"card": card, "window": "one local_ba_step (5 + 10 LM iterations)",
+           "keyframes_in_map": int(state.kf_valid.sum()),
+           "wall_ms_untraced_median": statistics.median(ba_ms)}
+    out.update(summarize(prof, 1, out["wall_ms_untraced_median"], "call"))
+    print(json.dumps(out))
+
+
+def summarize(prof, n: int, wall_ms: float, per: str) -> dict:
+    """Device busy time, idle share against the untraced wall time, kernel
+    count and the largest kernels and host operators of a traced window that
+    held `n` units (frames or calls)."""
     events = prof.key_averages()
 
     def dev_us(e):
@@ -78,30 +112,22 @@ def main():
     if not kernels:   # older profiler builds: fall back to self device time
         kernels = [e for e in events
                    if getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(getattr(e, "self_device_time_total", 0) or dev_us(e)
-                  for e in kernels)
-    n_launch = sum(e.count for e in kernels)
-    top_k = sorted(kernels, key=lambda e: -(getattr(
-        e, "self_device_time_total", 0) or dev_us(e)))[:12]
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total", 0) or dev_us(e)
+
+    busy_ms = sum(self_us(e) for e in kernels) / 1e3 / n
+    top_k = sorted(kernels, key=lambda e: -self_us(e))[:12]
     top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
-    out = {
-        "card": card, "frames_profiled": args.profiled,
-        "keyframes_in_window": system.shared.n_kf - n_kf_before,
-        "wall_ms_per_frame_untraced_median": wall_ms,
-        "wall_ms_per_frame_traced": traced_wall_ms,
-        "device_busy_ms_per_frame": busy_us / 1e3 / args.profiled,
-        "device_idle_share": 1.0 - busy_us / 1e3 / args.profiled / wall_ms,
-        "kernels_per_frame": n_launch / args.profiled,
-        "top_kernels_ms_per_frame": {
-            e.key[:60]: (getattr(e, "self_device_time_total", 0) or dev_us(e))
-            / 1e3 / args.profiled for e in top_k},
-        "top_host_ops_ms_per_frame": {
-            e.key[:60]: e.self_cpu_time_total / 1e3 / args.profiled
-            for e in top_cpu},
+    return {
+        f"device_busy_ms_per_{per}": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        f"kernels_per_{per}": sum(e.count for e in kernels) / n,
+        f"top_kernels_ms_per_{per}": {
+            e.key[:60]: self_us(e) / 1e3 / n for e in top_k},
+        f"top_host_ops_ms_per_{per}": {
+            e.key[:60]: e.self_cpu_time_total / 1e3 / n for e in top_cpu},
     }
-    print(json.dumps(out))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":
