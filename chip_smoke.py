@@ -19,6 +19,14 @@ Output, in order: the card's name and power limit, build seconds and ptxas
 lines, one line per kernel with the comparison at every shape, each path's
 numbers, one JSON object ``{"kernels": [...]}``, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``.
+
+Times: ``ms`` / ``kernel_ms`` of the pose optimizer and of PCG is the kernel
+alone (raw launches queued back to back between two CUDA events);
+``wrapper_ms`` is one call of the Python wrapper between two events, which
+also counts the host's time between the wrapper's own operations. ``ms_v1``
+and ``wrapper_ms_v1`` are the same two readings of the kernel's first design
+(pose optimizer) or of the grid path (PCG at D = 48 and 384), taken in turns
+with the present one in this process on this card.
 """
 import json
 import statistics
@@ -84,13 +92,22 @@ def cuda_ms(fn, reps: int) -> float:
     return float(statistics.median(times))
 
 
+def device_ms(run, batch: int = 20, reps: int = 7) -> float:
+    """Median milliseconds of one launch when `batch` launches of run() are
+    queued back to back between two CUDA events: the kernel's own time on the
+    card. cuda_ms of a wrapper call also counts the host's time between the
+    wrapper's own operations, which on a slow host exceeds the kernel's."""
+    return cuda_ms(lambda: [run() for _ in range(batch)], reps) / batch
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def pose_problem(B: int, N: int, seed: int):
+def pose_problem(B: int, N: int, seed: int, valid: float = 0.9):
     """Seeded batch of pose problems on the card: 10 % gross outliers, mixed
-    stereo / mono, 10 % of the slots masked out, information by level."""
+    stereo / mono, a share `valid` of the slots unmasked (at random places),
+    information by level."""
     rng = np.random.default_rng(seed)
     pw = np.stack([rng.uniform(-10, 10, (B, N)), rng.uniform(-3, 3, (B, N)),
                    rng.uniform(4, 40, (B, N))], -1)
@@ -110,7 +127,7 @@ def pose_problem(B: int, N: int, seed: int):
         * rng.choice([-1, 1], (B, n_out, 2))
     isig = 1.0 / 1.2 ** (2 * rng.integers(0, 8, (B, N)))
     stereo = rng.random((B, N)) < 0.8
-    mask = rng.random((B, N)) < 0.9
+    mask = rng.random((B, N)) < valid
     q0 = q + rng.normal(size=(B, 4)) * 0.01
     q0 /= np.linalg.norm(q0, axis=1, keepdims=True)
     t0 = t + rng.normal(size=(B, 3)) * 0.05
@@ -123,26 +140,47 @@ def pose_problem(B: int, N: int, seed: int):
         dev(mask, torch.bool))
 
 
-def pose_opt_bound_ms(B: int, N: int, cfg: OptimizerConfig):
-    """Least time the card could take: bytes moved once over the memory rate
-    against float32 operations over the peak rate. The schedule is fixed
-    (no early exit), so the counts follow from the shapes."""
+def pose_opt_bound(n_valid: int, B: int, N: int, cfg: OptimizerConfig):
+    """Least time the card could take when n_valid of the B * N slots are
+    unmasked: bytes moved once over the memory rate (every slot's inputs are
+    read, the mask says which count) against the float32 operations of the
+    valid observations over the peak rate. The schedule is fixed (no early
+    exit). Counted is what the function needs, not what the plain version
+    spends: the residual, cost and normal equations once at the starting pose
+    of each round and once at each iteration's candidate (an accepted
+    candidate's sums are the next iteration's), and a relabelling from those
+    residuals at each round's start and at the end."""
     bytes_moved = B * (N * (12 + 12 + 4 + 1 + 1) + 32) + B * (32 + N)
     resid, cost, relabel, normal_eq = 52, 6, 2, 217
-    passes = cfg.pose_opt_rounds * cfg.pose_opt_iters
+    passes = cfg.pose_opt_rounds * (cfg.pose_opt_iters + 1)
     flop_per_obs = (passes * (resid + cost + normal_eq)
-                    + passes * (resid + cost)
-                    + cfg.pose_opt_rounds * (resid + relabel))
+                    + (cfg.pose_opt_rounds + 1) * relabel)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = B * N * flop_per_obs / FP32_FLOP_PER_S * 1e3
+    t_ops = n_valid * flop_per_obs / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pose_optimize_v1(q0, t0, obs, cam, cfg):
+    """The first design of the pose kernel (csrc/pose_opt.cu, symbol
+    pose_opt_launch_v1), for timing beside the present one."""
+    return pose_opt._pose_optimize_cuda(
+        q0, t0, obs, cam, cfg, launch=pose_opt.load_kernel().pose_opt_launch_v1)
+
+
 def check_pose_kernel():
+    """K1 against its plain version (1e-5 in q and t, inlier labels equal on
+    99 %, counts within 2) at the shapes the path gives it and in three mask
+    regimes at N = 2048: 90 % of the slots valid, 20 % (the path's regime),
+    all; two launches bit-identical; the first design timed beside it
+    (kernel_ms / ms_v1: the kernels alone; wrapper_ms / wrapper_ms_v1: one
+    call of the Python wrapper, as earlier records timed it). With no valid
+    observation it returns the initial pose and 0
+    inliers, as the plain version does."""
     cfg = OptimizerConfig()
     rows = []
-    for B, N in ((1, 2048), (4, 2048), (1, 512)):
-        q0, t0, obs = pose_problem(B, N, seed=1000 * B + N)
+    for B, N, valid in ((1, 2048, 0.9), (4, 2048, 0.9), (1, 512, 0.9),
+                        (1, 2048, 0.2), (1, 2048, 1.0)):
+        q0, t0, obs = pose_problem(B, N, seed=1000 * B + N, valid=valid)
         k = pose_opt.pose_optimize(q0, t0, obs, CAM, cfg)
         torch.cuda.synchronize()
         p = pose_opt._pose_optimize_plain(q0, t0, obs, CAM, cfg)
@@ -155,44 +193,78 @@ def check_pose_kernel():
                 and int((k[3] - p[3]).abs().max()) <= 2):
             raise SystemExit(
                 f"pose_opt kernel disagrees with its plain version at B={B} "
-                f"N={N}: max |dq|,|dt| = {err:.3e} (tolerance 1e-5), inlier "
-                f"masks equal on {inl_eq:.4f} (need 0.99)")
+                f"N={N} valid={valid}: max |dq|,|dt| = {err:.3e} (tolerance "
+                f"1e-5), inlier masks equal on {inl_eq:.4f} (need 0.99)")
         again = pose_opt.pose_optimize(q0, t0, obs, CAM, cfg)
         if not all(torch.equal(a, b) for a, b in zip(k, again)):
             raise SystemExit("pose_opt kernel is not deterministic")
-        kernel_ms = cuda_ms(
+        v1 = pose_optimize_v1(q0, t0, obs, CAM, cfg)
+        err_v1 = max(float((v1[0] - p[0]).abs().max()),
+                     float((v1[1] - p[1]).abs().max()))
+        # old, new, new, old in turns on the same inputs: the kernels alone
+        # (raw launches back to back) and one wrapper call between two events
+        run_new = pose_opt._bind_launch(q0, t0, obs, CAM, cfg)[0]
+        run_v1 = pose_opt._bind_launch(
+            q0, t0, obs, CAM, cfg,
+            launch=pose_opt.load_kernel().pose_opt_launch_v1)[0]
+        d_v1 = [device_ms(run_v1)]
+        d_new = [device_ms(run_new), device_ms(run_new)]
+        d_v1.append(device_ms(run_v1))
+        w_v1 = cuda_ms(lambda: pose_optimize_v1(q0, t0, obs, CAM, cfg), 20)
+        w_new = cuda_ms(
             lambda: pose_opt.pose_optimize(q0, t0, obs, CAM, cfg), 20)
         plain_ms = cuda_ms(
             lambda: pose_opt._pose_optimize_plain(q0, t0, obs, CAM, cfg), 5)
-        bound_ms, bound_by = pose_opt_bound_ms(B, N, cfg)
+        n_valid = int(obs.mask.sum())
+        bound_ms, bound_by = pose_opt_bound(n_valid, B, N, cfg)
         rows.append({"name": "pose_opt", "B": B, "N": N,
+                     "valid_share": valid, "n_valid": n_valid,
                      "replaces": "optim/pose_opt_pallas.py::_pose_kernel",
                      "max_err": err, "inlier_agreement": inl_eq,
-                     "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "kernel_ms": min(d_new), "ms_v1": min(d_v1),
+                     "wrapper_ms": w_new, "wrapper_ms_v1": w_v1,
+                     "max_err_v1": err_v1, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "launches": pose_opt.pose_optimize.launches})
     print("kernels: " + json.dumps(rows))
 
-    # the kernel's serial skeleton: dependent block-wide reductions (+ solve)
+    # no valid observation: the initial pose comes back, with 0 inliers
+    q0, t0, obs = pose_problem(2, 2048, seed=5)
+    obs = obs._replace(mask=torch.zeros_like(obs.mask))
+    k = pose_opt.pose_optimize(q0, t0, obs, CAM, cfg)
+    p = pose_opt._pose_optimize_plain(q0, t0, obs, CAM, cfg)
+    if not (torch.equal(k[0], q0) and torch.equal(k[1], t0)
+            and torch.equal(p[0], q0) and torch.equal(p[1], t0)
+            and not bool(k[2].any()) and int(k[3].sum()) == 0
+            and int(p[3].sum()) == 0):
+        raise SystemExit("pose_opt kernel with no valid observation did not "
+                         "return the initial pose and 0 inliers")
+    print("pose_opt, no valid observation: initial pose and 0 inliers, as "
+          "the plain version")
+
+    # the kernel's serial skeleton: one dependent reduction per pass, each
+    # followed by the 6x6 solve and the pose update, on the kernel's own
+    # threads and blocks; rounds * (iters + 1) passes
     lib = pose_opt.load_kernel()
     out = torch.empty(1, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    threads, cluster = lib.pose_opt_threads(), lib.pose_opt_cluster()
     n = 4000
 
     def chain(count, with_solve):
         if lib.pose_opt_reduce_chain(out.data_ptr(), count, with_solve,
-                                     stream) != 0:
+                                     threads, cluster, stream) != 0:
             raise SystemExit("reduce-chain probe failed to launch")
 
-    probe = {}
+    probe = {"threads": threads, "blocks_per_pose": cluster}
     for with_solve in (0, 1):
         base = cuda_ms(lambda: chain(0, with_solve), 10)
         full = cuda_ms(lambda: chain(n, with_solve), 10)
         probe["reduce+solve_us" if with_solve else "reduce_us"] = \
             (full - base) / n * 1e3
-    passes = cfg.pose_opt_rounds * cfg.pose_opt_iters
-    probe["serial_floor_ms"] = passes * (probe["reduce+solve_us"]
-                                         + probe["reduce_us"]) * 1e-3
+    passes = cfg.pose_opt_rounds * (cfg.pose_opt_iters + 1)
+    probe["passes"] = passes
+    probe["serial_floor_ms"] = passes * probe["reduce+solve_us"] * 1e-3
     print("pose_opt serial chain: " + json.dumps(probe))
     return rows[0], probe
 
@@ -326,13 +398,64 @@ def check_prep_kernel():
 
 
 def pcg_bound_ms(D, n_iters, warm):
-    """S is read once per iteration (once more for a warm start): bytes over
-    the memory rate against 2 D^2 operations per read. S fits the 50 MB L2 at
-    every D up to 3072, so the device-memory rate is not a floor here."""
-    reads = n_iters + (1 if warm else 0)
-    t_bytes = reads * D * D * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * reads * D * D / FP32_FLOP_PER_S * 1e3
+    """Every input read once from device memory (S, rhs, the 6x6 blocks, the
+    warm start) and x written once, over the memory rate, against the 2 D^2
+    operations of each product with S (one per iteration, one more for a warm
+    start) over the float32 peak. Reading S again in every iteration is a
+    design's choice (from shared memory on the cluster path, from L2 on the
+    grid path), not something the function needs."""
+    products = n_iters + (1 if warm else 0)
+    floats = D * D + D + 6 * D + (D if warm else 0) + D
+    t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * products * D * D / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spd_system(D, seed):
+    """A seeded dense, well-conditioned SPD system on the card with strong
+    6x6 diagonal blocks: (S, rhs, Dinv, a warm start)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(D, D))
+    S = A @ A.T / D + np.diag(rng.uniform(1.0, 50.0, D))
+    rhs = rng.normal(size=D)
+    blocks = np.stack([S[i:i + 6, i:i + 6] for i in range(0, D, 6)])
+
+    def dev(a):
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+    return dev(S), dev(rhs), dev(np.linalg.inv(blocks)), \
+        dev(0.7 * np.linalg.solve(S, rhs))
+
+
+def check_pcg_cluster_sizes():
+    """The cluster path's other branches, which no path of this script
+    reaches: D = 654 (D not a multiple of 4: scalar load of S, scalar sends;
+    8 blocks) and D = 924 (the 16-block cluster, a size the launch must ask
+    leave for). On seeded well-conditioned systems that 32 iterations solve,
+    warm and cold: within 1e-4 of x's scale of the plain version, two
+    launches bit-identical."""
+    lib = pcg.load_kernel()
+    rows = []
+    for D, blocks in ((654, 8), (924, 16)):
+        if lib.pcg_cluster_blocks(D) != blocks:
+            raise SystemExit(f"pcg: D={D} got {lib.pcg_cluster_blocks(D)} "
+                             f"blocks, expected a cluster of {blocks}")
+        S, rhs, Dinv, x0 = spd_system(D, seed=D)
+        row = {"name": "pcg", "D": D, "path": "cluster", "blocks": blocks}
+        for key, warm in (("err_cold", None), ("err_warm", x0)):
+            k = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
+            torch.cuda.synchronize()
+            p = ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm)
+            row[key] = scale_err(k, p)
+            if not (bool(torch.isfinite(k).all()) and row[key] <= 1e-4):
+                raise SystemExit("pcg cluster path disagrees with the plain "
+                                 "version: " + json.dumps(row))
+            if not torch.equal(k, pcg.pcg_solve(S, rhs, Dinv, 32, warm)):
+                raise SystemExit(f"pcg is not deterministic at D={D}")
+        row["kernel_ms"] = device_ms(pcg._bind_launch(S, rhs, Dinv, 32, x0)[0])
+        row["ms_v1"] = device_ms(pcg._bind_launch(
+            S, rhs, Dinv, 32, x0, launch=lib.pcg_launch_grid)[0])
+        rows.append(row)
+    print("pcg, other cluster sizes: " + json.dumps(rows))
 
 
 def check_pcg_kernel(systems):
@@ -347,9 +470,16 @@ def check_pcg_kernel(systems):
     float64 solve is no worse than 1.1 x the plain version's, the two
     differ by at most 0.25 of that error (plus 1e-5) in the same norm, and
     the kernel's true residual is no worse than 1.1 x the plain version's.
-    Two launches are bit-identical."""
+    Two launches are bit-identical. D = 48 and 384 go through the cluster
+    path (S resident in shared memory), 1536 and 3072 through the grid path;
+    each row says which (`path`), and at 48 and 384 the grid path is timed
+    beside it on the same system (`ms_v1`)."""
     lib = pcg.load_kernel()
     rows = []
+
+    def solve_grid(*args):
+        return pcg._pcg_solve_cuda(*args, launch=lib.pcg_launch_grid)
+
     for D in sorted(systems):
         S, rhs, Dinv = systems[D]
         S64 = S.double()
@@ -387,21 +517,51 @@ def check_pcg_kernel(systems):
                                  "version: " + json.dumps(row))
             if not torch.equal(xk, again):
                 raise SystemExit("pcg kernel is not deterministic")
-            kernel_ms = cuda_ms(lambda: pcg.pcg_solve(S, rhs, Dinv, 32, warm),
-                                20)
+            path = "cluster" if lib.pcg_cluster_blocks(D) > 0 else "grid"
+            if path != ("cluster" if D <= 384 else "grid"):
+                raise SystemExit(f"pcg took the {path} path at D={D}")
+            row["path"] = path
+            ms_v1 = wrapper_ms_v1 = None
+            run_new = pcg._bind_launch(S, rhs, Dinv, 32, warm)[0]
+            if path == "cluster":
+                # the grid path on the same system: correct by the same
+                # measure, and timed in turns with the cluster path
+                xg = solve_grid(S, rhs, Dinv, 32, warm)
+                row["energy_diff_grid_path"] = energy(xg - xp)
+                if not energy(xg - exact) <= 1.1 * en_p + 1e-6:
+                    raise SystemExit("pcg grid path disagrees at D=%d" % D)
+                run_grid = pcg._bind_launch(S, rhs, Dinv, 32, warm,
+                                            launch=lib.pcg_launch_grid)[0]
+                t_grid = [device_ms(run_grid)]
+            t_new = [device_ms(run_new), device_ms(run_new)]
+            if path == "cluster":
+                t_grid.append(device_ms(run_grid))
+                ms_v1 = min(t_grid)
+                wrapper_ms_v1 = cuda_ms(
+                    lambda: solve_grid(S, rhs, Dinv, 32, warm), 20)
+                # the load of S and the set-up alone: no iteration
+                row["load_only_ms"] = device_ms(
+                    pcg._bind_launch(S, rhs, Dinv, 0, warm)[0])
+            wrapper_ms = cuda_ms(
+                lambda: pcg.pcg_solve(S, rhs, Dinv, 32, warm), 20)
             plain_ms = cuda_ms(
                 lambda: ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm), 5)
             bound_ms, bound_by = pcg_bound_ms(D, 32, warm is not None)
-            row.update({"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            row.update({"kernel_ms": min(t_new), "ms_v1": ms_v1,
+                        "wrapper_ms": wrapper_ms,
+                        "wrapper_ms_v1": wrapper_ms_v1,
+                        "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "grid_blocks": lib.pcg_grid_blocks(D)})
+                        "blocks": (lib.pcg_cluster_blocks(D)
+                                   or lib.pcg_grid_blocks(D))})
             rows.append(row)
         # the exact solve a later change will weigh K3 against (another
         # function than 32 inexact CG steps, so not a library time of K3)
         rows[-1]["cholesky_solve_ms"] = cuda_ms(
             lambda: torch.cholesky_solve(rhs[:, None],
                                          torch.linalg.cholesky_ex(S).L), 5)
-        # the serial skeleton: two grid barriers and reductions an iteration
+        # the serial skeleton of the path this D takes: two barriers (the
+        # cluster's or the grid's) and two reductions an iteration
         scratch = torch.empty(lib.pcg_scratch_floats(D), device="cuda")
         out = torch.empty(1, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
@@ -484,8 +644,19 @@ def drive_path(frames, t_gt, local_ba: bool):
             return out
         return wrapper
 
+    # valid observations of every K1 launch: the masks are only kept here
+    # (no operation is queued inside the timed frames); they are summed and
+    # fetched once after the path
+    masks = []
+    real_pose_cuda = pose_opt._pose_optimize_cuda
+
+    def counting_pose_cuda(q0, t0, obs, *a, **kw):
+        masks.append(obs.mask)
+        return real_pose_cuda(q0, t0, obs, *a, **kw)
+
     real_extract = frame_mod.extract_frame
     real_local_ba = steps_mod.local_ba_step
+    pose_opt._pose_optimize_cuda = counting_pose_cuda
     frame_mod.extract_frame = timed(real_extract, "extract")
     steps_mod.local_ba_step = timed(real_local_ba, "local_ba")
     tracker._create_keyframe = timed(tracker._create_keyframe, "keyframe")
@@ -515,10 +686,17 @@ def drive_path(frames, t_gt, local_ba: bool):
         torch.cuda.set_sync_debug_mode("default")
         frame_mod.extract_frame = real_extract
         steps_mod.local_ba_step = real_local_ba
+        pose_opt._pose_optimize_cuda = real_pose_cuda
     launches = {"pose_opt": pose_opt.pose_optimize.launches,
                 "ba_prep": ba_prep.prep_terms.launches,
                 "pcg": pcg.pcg_solve.launches}
     system.shutdown()
+    n_valid = torch.cat([m.reshape(-1, m.shape[-1]).sum(dim=-1)
+                         for m in masks]).cpu().numpy()
+    print(f"{label}: valid observations per pose_opt launch: mean "
+          f"{n_valid.mean():.1f}, max {int(n_valid.max())}, min "
+          f"{int(n_valid.min())} of {CFG.caps.max_features} slots "
+          f"({len(n_valid)} launches)")
 
     # what came out
     traj = tracker.trajectory
@@ -571,6 +749,8 @@ def drive_path(frames, t_gt, local_ba: bool):
             syncs[i] for i in range(1, n_frames) if is_kf[i]),
         "device_syncs_per_frame_max": max(syncs[1:]),
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "pose_opt_valid_obs_mean": float(n_valid.mean()),
+        "pose_opt_valid_obs_max": int(n_valid.max()),
     }
     print(f"{label}: " + json.dumps(report))
     print(f"{label}: ms per tracked frame (median, no keyframe) "
@@ -655,6 +835,7 @@ def main():
     k1, probe = check_pose_kernel()
     k2_rows, systems = check_prep_kernel()
     k3_rows = check_pcg_kernel(systems)
+    check_pcg_cluster_sizes()
     del systems
     torch.cuda.empty_cache()
     check_solver_determinism()
@@ -680,10 +861,14 @@ def main():
         "launches": ba_launches["pose_opt"],
         "launches_no_ba_path": no_ba_launches["pose_opt"],
         "max_abs_err": k1["max_err"],
-        "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+        "ms": k1["kernel_ms"], "ms_v1": k1["ms_v1"],
+        "wrapper_ms": k1["wrapper_ms"], "wrapper_ms_v1": k1["wrapper_ms_v1"],
+        "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,
         "serial_floor_ms": probe["serial_floor_ms"],
+        "threads": probe["threads"],
+        "blocks_per_pose": probe["blocks_per_pose"],
     }, {
         "name": "ba_prep", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/ba_prep.cu",
@@ -692,7 +877,7 @@ def main():
         "max_abs_err": k2["max_err_over_scale"],
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "ms_v1": None,
         "cost_only_ms": k2["cost_only_ms"],
     }, {
         "name": "pcg", "route": "cuda",
@@ -703,7 +888,9 @@ def main():
         "err_2_iters": k3["err_2_iters"],
         "energy_norm_diff": k3["energy_diff"],
         "energy_norm_err_plain": k3["energy_err_plain"],
-        "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
+        "ms": k3["kernel_ms"], "ms_v1": k3["ms_v1"], "path": k3["path"],
+        "wrapper_ms": k3["wrapper_ms"], "wrapper_ms_v1": k3["wrapper_ms_v1"],
+        "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": None,
         "cholesky_solve_ms": k3["cholesky_solve_ms"],

@@ -5,8 +5,13 @@ implementations of one function:
 
 - the CUDA kernel ``csrc/pcg.cu`` (replaces the Pallas TPU kernel inside
   ``optim/ba_kernels.py::pcg_solve_pallas``): the whole fixed-length solve in
-  one cooperative launch, for every D = 6K (no size above which it gives way
-  to another solver); see the source's header for what bounds it;
+  one launch, for every D = 6K (no size above which it gives way to another
+  solver). Two paths inside the C launcher, chosen by D alone: where S fits
+  the shared memory of one thread-block cluster (8 blocks up to D = 660, the
+  local BA's D = 384 among them; 16 blocks up to D = 924) it is loaded there
+  once and the loop never touches global memory; larger D stream S from L2
+  through a cooperative grid. See the
+  source's header for what bounds each;
 - ``ba_kernels.pcg_solve``, the plain PyTorch version (``_pcg_solve_plain``
   here).
 
@@ -35,6 +40,24 @@ def pcg_solve(S_dense, rhs_flat, block_diag_inv, n_iters: int = 48, x0=None):
 
 pcg_solve.launches = 0   # kernel launches so far (plain int)
 
+
+def cluster_rows(D: int, n_blocks: int):
+    """Rows of S each block of the cluster path owns: [(first, end), ...],
+    as csrc/pcg.cu deals them (the library's ``pcg_cluster_blocks(D)`` says
+    how many blocks the launcher takes for a dimension, 0 for the grid path).
+
+    The K = D / 6 poses are dealt in contiguous runs whose lengths differ by
+    at most one (longer runs first), and a block owns all six rows of each of
+    its poses, because the owner of a pose applies its 6x6 preconditioner
+    block. Every row is owned exactly once; a block may own none."""
+    if D <= 0 or D % 6:
+        raise ValueError(f"D = {D} is not a positive multiple of 6")
+    K = D // 6
+    base, rem = divmod(K, n_blocks)
+    first = [b * base + min(b, rem) for b in range(n_blocks + 1)]
+    return [(6 * first[b], 6 * first[b + 1]) for b in range(n_blocks)]
+
+
 _lib = None
 
 
@@ -47,13 +70,23 @@ def load_kernel():
         lib = load_library("pcg")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pcg_launch.argtypes = [p] * 6 + [i, i, i, p]
-        lib.pcg_launch.restype = i
+        lib.pcg_launch_grid.argtypes = [p] * 6 + [i, i, i, p]
+        lib.pcg_launch_cluster.argtypes = [p] * 5 + [i, i, i, i, p]
         lib.pcg_scratch_floats.argtypes = [i]
-        lib.pcg_scratch_floats.restype = i
         lib.pcg_grid_blocks.argtypes = [i]
-        lib.pcg_grid_blocks.restype = i
+        lib.pcg_cluster_blocks.argtypes = [i]
+        lib.pcg_cluster_smem_bytes.argtypes = [i, i]
         lib.pcg_barrier_chain.argtypes = [p, p, i, i, p]
-        lib.pcg_barrier_chain.restype = i
+        lib.pcg_barrier_chain_grid.argtypes = [p, p, i, i, p]
+        lib.pcg_barrier_chain_cluster.argtypes = [p, i, i, p]
+        for fn in (lib.pcg_launch, lib.pcg_launch_grid,
+                   lib.pcg_launch_cluster,
+                   lib.pcg_scratch_floats,
+                   lib.pcg_grid_blocks, lib.pcg_cluster_blocks,
+                   lib.pcg_barrier_chain, lib.pcg_barrier_chain_grid,
+                   lib.pcg_barrier_chain_cluster):
+            fn.restype = i
+        lib.pcg_cluster_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -73,8 +106,14 @@ def _check(name, t, shape, device):
     return t
 
 
-def _pcg_solve_cuda(S, rhs, Dinv, n_iters, x0):
+def _bind_launch(S, rhs, Dinv, n_iters, x0, launch=None):
+    """Check the inputs, allocate the output and return (run, x). run()
+    launches the kernel on these buffers on the current stream and does
+    nothing else, so a timing script can call it back to back; `launch`
+    (such a script's choice) stands in for ``pcg_launch`` and takes the same
+    arguments."""
     lib = load_kernel()
+    launch = launch or lib.pcg_launch
     dev = S.device
     D = S.shape[0]
     K = Dinv.shape[0]
@@ -88,12 +127,21 @@ def _pcg_solve_cuda(S, rhs, Dinv, n_iters, x0):
     x = torch.empty(D, dtype=torch.float32, device=dev)
     scratch = torch.empty(lib.pcg_scratch_floats(D), dtype=torch.float32,
                           device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pcg_launch(S.data_ptr(), rhs.data_ptr(), Dinv.data_ptr(),
-                             0 if x0 is None else x0.data_ptr(), x.data_ptr(),
-                             scratch.data_ptr(), D, K, int(n_iters), stream)
-    pcg_solve.launches += 1
-    if err != 0:
-        raise RuntimeError(f"pcg kernel launch failed: CUDA error {err}")
+
+    def run():
+        with torch.cuda.device(dev):
+            err = launch(S.data_ptr(), rhs.data_ptr(), Dinv.data_ptr(),
+                         0 if x0 is None else x0.data_ptr(), x.data_ptr(),
+                         scratch.data_ptr(), D, K, int(n_iters),
+                         torch.cuda.current_stream().cuda_stream)
+        pcg_solve.launches += 1
+        if err != 0:
+            raise RuntimeError(f"pcg kernel launch failed: CUDA error {err}")
+
+    return run, x
+
+
+def _pcg_solve_cuda(S, rhs, Dinv, n_iters, x0, launch=None):
+    run, x = _bind_launch(S, rhs, Dinv, n_iters, x0, launch)
+    run()
     return x

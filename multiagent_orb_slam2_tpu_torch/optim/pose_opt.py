@@ -11,9 +11,13 @@ Two implementations of one function live here:
 
 - the CUDA kernel ``csrc/pose_opt.cu`` (replaces the Pallas TPU kernel
   ``optim/pose_opt_pallas.py::_pose_kernel``): the whole schedule in one
-  launch, one thread block per problem, so a batch of poses is one launch.
-  On an H100 the work is bound by its serial chain of block-wide reductions,
-  not by bytes (72 KB at N = 2048) or arithmetic; see the source's header;
+  launch, a batch of poses is one launch. On an H100 the work is bound by its
+  serial chain of block-wide reductions, not by bytes (72 KB at N = 2048) or
+  the card's arithmetic rate, so the kernel makes one pass and one reduction
+  per LM iteration, loops over the valid observations only, compacted into
+  shared memory, and gives a pose a cluster of 4 thread blocks; see the
+  source's header. The first design stays loadable as
+  ``pose_opt_launch_v1`` for timing old against new in one process;
 - ``_pose_optimize_plain``: the same schedule in tensor ops, following the
   kernel's arithmetic (damping, Cholesky clamps, cost definition), batched.
 
@@ -80,12 +84,16 @@ def load_kernel():
         from ..utils.cuda_build import load_library
         lib = load_library("pose_opt")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pose_opt_launch.argtypes = [p] * 8 + [i, i] + [f] * 7 + [i, i, p]
-        lib.pose_opt_launch.restype = i
-        lib.pose_opt_max_obs.argtypes = []
-        lib.pose_opt_max_obs.restype = i
-        lib.pose_opt_reduce_chain.argtypes = [p, i, i, p]
-        lib.pose_opt_reduce_chain.restype = i
+        launch_args = [p] * 8 + [i, i] + [f] * 7 + [i, i, p]
+        lib.pose_opt_launch.argtypes = launch_args
+        lib.pose_opt_launch_v1.argtypes = launch_args
+        lib.pose_opt_launch_variant.argtypes = launch_args + [i, i, i]
+        lib.pose_opt_reduce_chain.argtypes = [p, i, i, i, i, p]
+        for fn in (lib.pose_opt_launch, lib.pose_opt_launch_v1,
+                   lib.pose_opt_launch_variant, lib.pose_opt_reduce_chain,
+                   lib.pose_opt_max_obs, lib.pose_opt_threads,
+                   lib.pose_opt_cluster):
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -103,15 +111,21 @@ def _check(name, t, dtype, shape, device):
     return t.contiguous()
 
 
-def _pose_optimize_cuda(q0, t0, obs: PoseObs, cam: Intrinsics,
-                        cfg: OptimizerConfig):
+def _bind_launch(q0, t0, obs: PoseObs, cam: Intrinsics, cfg: OptimizerConfig,
+                 launch=None):
+    """Check the inputs, allocate the outputs and return (run, qt_out,
+    inlier). run() launches the kernel on these buffers on the current stream
+    and does nothing else, so a timing script can call it back to back;
+    `launch` (such a script's choice) stands in for ``pose_opt_launch`` and
+    takes the same arguments."""
     lib = load_kernel()
+    launch = launch or lib.pose_opt_launch
     dev = q0.device
     B, N = obs.pw.shape[0], obs.pw.shape[1]
     if N > lib.pose_opt_max_obs():
         raise ValueError(
             f"pose_optimize: N = {N} observations exceed the kernel's "
-            f"register budget of {lib.pose_opt_max_obs()} per problem")
+            f"shared-memory budget of {lib.pose_opt_max_obs()} per problem")
     f32 = torch.float32
     q0 = _check("q0", q0, f32, (B, 4), dev)
     t0 = _check("t0", t0, f32, (B, 3), dev)
@@ -124,17 +138,27 @@ def _pose_optimize_cuda(q0, t0, obs: PoseObs, cam: Intrinsics,
     qt0 = torch.cat([q0, t0, q0.new_zeros((B, 1))], dim=1)
     qt_out = torch.empty((B, 8), dtype=f32, device=dev)
     inlier = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pose_opt_launch(
-            qt0.data_ptr(), pw.data_ptr(), ob.data_ptr(), isig.data_ptr(),
-            stereo.data_ptr(), mask.data_ptr(), qt_out.data_ptr(),
-            inlier.data_ptr(), B, N, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-            cfg.chi2_mono, cfg.chi2_stereo, cfg.pose_opt_rounds,
-            cfg.pose_opt_iters, stream)
-    pose_optimize.launches += 1
-    if err != 0:
-        raise RuntimeError(f"pose_opt kernel launch failed: CUDA error {err}")
+
+    def run():
+        with torch.cuda.device(dev):
+            err = launch(
+                qt0.data_ptr(), pw.data_ptr(), ob.data_ptr(), isig.data_ptr(),
+                stereo.data_ptr(), mask.data_ptr(), qt_out.data_ptr(),
+                inlier.data_ptr(), B, N, cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.bf, cfg.chi2_mono, cfg.chi2_stereo, cfg.pose_opt_rounds,
+                cfg.pose_opt_iters, torch.cuda.current_stream().cuda_stream)
+        pose_optimize.launches += 1
+        if err != 0:
+            raise RuntimeError(
+                f"pose_opt kernel launch failed: CUDA error {err}")
+
+    return run, qt_out, inlier
+
+
+def _pose_optimize_cuda(q0, t0, obs: PoseObs, cam: Intrinsics,
+                        cfg: OptimizerConfig, launch=None):
+    run, qt_out, inlier = _bind_launch(q0, t0, obs, cam, cfg, launch)
+    run()
     return (qt_out[:, :4], qt_out[:, 4:7], inlier.view(torch.bool),
             qt_out[:, 7].to(torch.int32))
 
@@ -240,6 +264,36 @@ def _se3_update(dx, qt):
                         ntx, nty, ntz], dim=1)
 
 
+def _normal_equations(qt, pw, ob, isig, stf, d2, inlier, cam, use_huber):
+    """One pass at poses qt [B, 7]: H [B, 6, 6] = sum w J^T J, b [B, 6] =
+    -sum w J^T r and the robust cost [B] over the observations that `inlier`
+    [B, N] (0 / 1) keeps."""
+    fx, fy, bf = cam.fx, cam.fy, cam.bf
+    X, Y, Z, iz, r0, r1, r2, chi2, zok = _residual(qt, pw, ob, isig, stf, cam)
+    if use_huber:
+        w_rob = torch.sqrt(d2 / chi2.clamp_min(1e-12)).clamp_max(1.0)
+    else:
+        w_rob = torch.ones_like(chi2)
+    w = isig * w_rob * inlier * zok
+    cost = torch.sum(_robust_cost(chi2, d2, use_huber) * inlier * zok, dim=-1)
+    iz2 = iz * iz
+    zero = torch.zeros_like(iz)
+    a = ((-fx * iz, zero, fx * X * iz2),
+         (zero, -fy * iz, fy * Y * iz2),
+         ((-fx * iz) * stf, zero, (fx * X * iz2 - bf * iz2) * stf))
+    rows = []
+    for (a0, a1, a2) in a:
+        rows.append(torch.stack(
+            [a0, a1, a2, a2 * Y - a1 * Z, a0 * Z - a2 * X,
+             a1 * X - a0 * Y], dim=-1))
+    J = torch.stack(rows, dim=-2)                     # [B, N, 3, 6]
+    Jw = J * w[..., None, None]
+    H = torch.einsum("bnri,bnrj->bij", Jw, J)
+    rr = torch.stack([r0, r1, r2], dim=-1)            # [B, N, 3]
+    bvec = -torch.einsum("bnri,bnr->bi", Jw, rr)
+    return H, bvec, cost
+
+
 def _pose_optimize_plain(q0, t0, obs: PoseObs, cam: Intrinsics,
                          cfg: OptimizerConfig = OptimizerConfig()):
     """The kernel's schedule in tensor ops. q0 [B, 4], t0 [B, 3], obs fields
@@ -252,7 +306,6 @@ def _pose_optimize_plain(q0, t0, obs: PoseObs, cam: Intrinsics,
     stf = obs.is_stereo.to(f32)
     mask0 = obs.mask.to(f32)
     d2 = cfg.chi2_stereo * stf + cfg.chi2_mono * (1.0 - stf)
-    fx, fy, bf = cam.fx, cam.fy, cam.bf
     rounds, iters = cfg.pose_opt_rounds, cfg.pose_opt_iters
     B = q0.shape[0]
     eye = torch.eye(6, dtype=f32, device=q0.device)
@@ -263,30 +316,8 @@ def _pose_optimize_plain(q0, t0, obs: PoseObs, cam: Intrinsics,
         use_huber = rnd < rounds - 1
         lam = torch.full((B,), 1e-3, dtype=f32, device=q0.device)
         for _ in range(iters):
-            X, Y, Z, iz, r0, r1, r2, chi2, zok = _residual(
-                qt, pw, ob, isig, stf, cam)
-            if use_huber:
-                w_rob = torch.sqrt(d2 / chi2.clamp_min(1e-12)).clamp_max(1.0)
-            else:
-                w_rob = torch.ones_like(chi2)
-            w = isig * w_rob * inlier * zok
-            cost0 = torch.sum(_robust_cost(chi2, d2, use_huber) * inlier * zok,
-                              dim=-1)
-            iz2 = iz * iz
-            zero = torch.zeros_like(iz)
-            a = ((-fx * iz, zero, fx * X * iz2),
-                 (zero, -fy * iz, fy * Y * iz2),
-                 ((-fx * iz) * stf, zero, (fx * X * iz2 - bf * iz2) * stf))
-            rows = []
-            for (a0, a1, a2) in a:
-                rows.append(torch.stack(
-                    [a0, a1, a2, a2 * Y - a1 * Z, a0 * Z - a2 * X,
-                     a1 * X - a0 * Y], dim=-1))
-            J = torch.stack(rows, dim=-2)                     # [B, N, 3, 6]
-            Jw = J * w[..., None, None]
-            H = torch.einsum("bnri,bnrj->bij", Jw, J)
-            rr = torch.stack([r0, r1, r2], dim=-1)            # [B, N, 3]
-            bvec = -torch.einsum("bnri,bnr->bi", Jw, rr)
+            H, bvec, cost0 = _normal_equations(qt, pw, ob, isig, stf, d2,
+                                               inlier, cam, use_huber)
             # damping: H + lam * diag(H) (+ tiny floor)
             diag = torch.diagonal(H, dim1=-2, dim2=-1)
             Hd = H + eye * (diag * lam[:, None] + 1e-9)[:, None, :]

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library ``build/<name>_<hash>.so`` at the repository root, where <hash>
-covers the source text and the compiler flags, so an edit rebuilds. The build
+covers the source text, the headers beside it (``csrc/*.cuh``) and the
+compiler flags, so an edit rebuilds. The build
 happens at first use and never falls back: a failure raises with nvcc's
 output. Several sources are compiled by concurrent nvcc processes.
 """
@@ -42,7 +43,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}_{digest}.so"
 

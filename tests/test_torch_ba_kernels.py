@@ -6,7 +6,9 @@
   Pallas body of ba_pallas.prep_terms run in interpret mode, and against its
   XLA twin (obs_terms_e + sym3_inv);
 - optim/pcg.py: the plain version of the PCG kernel against the Pallas body
-  of pcg_solve_pallas in interpret mode and against pcg_solve.
+  of pcg_solve_pallas in interpret mode and against pcg_solve; the row
+  ownership of the cluster path (its choice by size is asked of the built
+  library, on the card).
 
 Inputs come from a seed through numpy and go to both packages. Tolerances are
 relative to each output's scale (its largest magnitude): 2e-5 for the
@@ -171,6 +173,36 @@ def test_plain_pcg_matches_interpreted_pallas_body(warm):
     assert rel_err(got.numpy(), want) <= 1e-4
 
 
+@pytest.mark.parametrize("n_blocks", [8, 16])
+@pytest.mark.parametrize("D", [48, 384, 654, 930])
+def test_cluster_rows_deal_whole_poses(D, n_blocks):
+    """The cluster path's ownership: contiguous runs of whole poses (6 rows
+    each, the 6x6 preconditioner block is applied by the rows' owner), every
+    row owned exactly once, run lengths differing by at most one pose."""
+    runs = pcg.cluster_rows(D, n_blocks)
+    assert len(runs) == n_blocks
+    assert runs[0][0] == 0 and runs[-1][1] == D
+    for (a, b), (c, _) in zip(runs, runs[1:] + [(D, D)]):
+        assert a % 6 == 0 and b % 6 == 0 and a <= b == c
+    owner = np.full(D, -1)
+    for blk, (a, b) in enumerate(runs):
+        assert (owner[a:b] == -1).all()
+        owner[a:b] = blk
+    assert (owner >= 0).all()
+    sizes = [(b - a) // 6 for a, b in runs]
+    assert max(sizes) - min(sizes) <= 1 and sizes == sorted(sizes)[::-1]
+    assert sum(sizes) == D // 6
+    # the launcher's arithmetic: first pose of block b
+    K = D // 6
+    for blk, (a, _) in enumerate(runs):
+        assert a == 6 * (blk * (K // n_blocks) + min(blk, K % n_blocks))
+
+
+def test_cluster_rows_refuses_a_size_that_is_not_poses():
+    with pytest.raises(ValueError):
+        pcg.cluster_rows(50, 8)
+
+
 @pytest.fixture(scope="module")
 def plain_prep(prob):
     f = prob["fields"]
@@ -306,3 +338,71 @@ def test_pcg_kernel_matches_plain_on_the_card(cuda_device):
         assert pcg.pcg_solve.launches == before + 1
         p = tbk.pcg_solve(S, rhs, Dinv, 32, warm)
         assert rel_err(k.cpu().numpy(), p.cpu().numpy()) <= 1e-4
+
+
+def _energy_check(S, rhs, Dinv, x0, solve):
+    """The measure of chip_smoke.py: after 32 iterations the kernel's error
+    against a float64 solve, in the energy norm, is within 1.1 x the plain
+    version's, the two differ by at most 0.25 of that error (+ 1e-5), and
+    after 2 iterations they agree within 1e-4 of x's scale."""
+    S64 = S.double()
+    exact = torch.linalg.solve(S64, rhs.double())
+    norm = float(torch.sqrt(exact @ (S64 @ exact)))
+
+    def energy(d):
+        d = d.double()
+        return float(torch.sqrt((d @ (S64 @ d)).clamp_min(0.0))) / norm
+
+    for warm in (None, x0):
+        k2, p2 = solve(S, rhs, Dinv, 2, warm), tbk.pcg_solve(S, rhs, Dinv, 2,
+                                                             warm)
+        assert rel_err(k2.cpu().numpy(), p2.cpu().numpy()) <= 1e-4
+        xk = solve(S, rhs, Dinv, 32, warm)
+        xp = tbk.pcg_solve(S, rhs, Dinv, 32, warm)
+        en_p = energy(xp - exact)
+        assert energy(xk - exact) <= 1.1 * en_p + 1e-6
+        assert energy(xk - xp) <= 0.25 * en_p + 1e-5
+        assert torch.equal(xk, solve(S, rhs, Dinv, 32, warm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D, blocks", [(48, 8), (384, 8), (654, 8), (660, 8),
+                                       (666, 16), (924, 16), (930, 0),
+                                       (1536, 0), (3072, 0)])
+def test_cluster_path_is_chosen_by_size_alone(cuda_device, D, blocks):
+    """The launcher's choice: 8 blocks where they hold S in shared memory,
+    else 16, else the grid path; what a block asks for holds its rows and
+    stays inside the 227 KB it may have."""
+    lib = pcg.load_kernel()
+    limit = 227 * 1024
+    assert lib.pcg_cluster_blocks(D) == blocks
+    if blocks:
+        need = lib.pcg_cluster_smem_bytes(D, blocks)
+        rows = max(b - a for a, b in pcg.cluster_rows(D, blocks))
+        assert 4 * rows * D <= need <= limit
+    for n_blocks in (8, 16):
+        if n_blocks != blocks and (blocks == 0 or n_blocks < blocks):
+            assert lib.pcg_cluster_smem_bytes(D, n_blocks) > limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_poses, blocks", [(8, 8), (64, 8), (109, 8),
+                                             (154, 16)])
+def test_pcg_cluster_path_matches_plain_on_the_card(cuda_device, n_poses,
+                                                    blocks):
+    """On the card, D = 48 and 384 (rows read and sent 16 bytes at a time),
+    654 (an odd number of poses: the scalar load of S and scalar sends) and
+    924 (the 16-block cluster): pcg_solve takes the cluster path and agrees
+    with ba_kernels.pcg_solve in the energy norm, two launches bit for bit;
+    the grid path on the same system does too."""
+    D = 6 * n_poses
+    lib = pcg.load_kernel()
+    assert lib.pcg_cluster_blocks(D) == blocks
+    S, rhs, Dinv, x0 = (torch.from_numpy(a).to(cuda_device)
+                        for a in _spd_system(4, n_poses=n_poses))
+    before = pcg.pcg_solve.launches
+    _energy_check(S, rhs, Dinv, x0, pcg.pcg_solve)
+    assert pcg.pcg_solve.launches > before
+    _energy_check(S, rhs, Dinv, x0,
+                  lambda *a: pcg._pcg_solve_cuda(*a,
+                                                 launch=lib.pcg_launch_grid))
