@@ -20,13 +20,18 @@ lines, one line per kernel with the comparison at every shape, each path's
 numbers, one JSON object ``{"kernels": [...]}``, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``.
 
-Times: ``ms`` / ``kernel_ms`` of the pose optimizer and of PCG is the kernel
-alone (raw launches queued back to back between two CUDA events);
-``wrapper_ms`` is one call of the Python wrapper between two events, which
-also counts the host's time between the wrapper's own operations. ``ms_v1``
-and ``wrapper_ms_v1`` are the same two readings of the kernel's first design
-(pose optimizer) or of the grid path (PCG at D = 48 and 384), taken in turns
-with the present one in this process on this card.
+Times: ``ms`` / ``kernel_ms`` of every kernel is the kernel alone (raw
+launches queued back to back between two CUDA events; for the Schur
+preparation, whose launches take less time on the card than on the host,
+replayed from a CUDA graph, its host-queued reading beside it as
+``*_stream``); ``wrapper_ms`` is one call of the Python wrapper between two
+events, which also counts the host's time between the wrapper's own
+operations. ``ms_v1`` and ``wrapper_ms_v1``
+are the same two readings of the kernel's first design (pose optimizer,
+Schur preparation) or of the grid path (PCG at D = 48 and 384), taken in
+turns with the present one in this process on this card. After the BA path
+the Schur preparation is timed again, alone, on the workspaces that path's
+local bundle adjustments built (``ba_prep, real maps``).
 """
 import json
 import statistics
@@ -98,6 +103,22 @@ def device_ms(run, batch: int = 20, reps: int = 7) -> float:
     card. cuda_ms of a wrapper call also counts the host's time between the
     wrapper's own operations, which on a slow host exceeds the kernel's."""
     return cuda_ms(lambda: [run() for _ in range(batch)], reps) / batch
+
+
+def graph_ms(run, batch: int = 20, reps: int = 7) -> float:
+    """Median milliseconds of one launch when `batch` launches of run() are
+    captured in a CUDA graph and replayed between two CUDA events: the
+    kernel's own time without the host's gaps between launches. A launch
+    from Python costs tens of microseconds of host time, more than a kernel
+    of a few microseconds takes, so device_ms of such a kernel reads the
+    host."""
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            run()
+    return cuda_ms(graph.replay, reps) / batch
 
 
 # ---------------------------------------------------------------------------
@@ -274,10 +295,12 @@ def check_pose_kernel():
 # ---------------------------------------------------------------------------
 
 D2M, D2S = 5.991, 7.815
-# float32 operations of csrc/ba_prep.cu per active slot: the slot evaluation
-# (rotate, project, chi2, Huber, Jacobian rows, rotation matrix: 95) runs in
-# both passes; pass 1 adds Jp (45), Hpp (36) and bp (18); pass 2 adds Jp (45),
-# Jc (27), Wb (108), Y and Ybp (126), Ht (126) and bt (42)
+# float32 operations per active slot, as counted for the first design of
+# csrc/ba_prep.cu and kept so that bounds stay comparable: the slot
+# evaluation (rotate, project, chi2, Huber, Jacobian rows, rotation matrix:
+# 95) twice; Jp (45), Hpp (36) and bp (18); Jp again (45), Jc (27), Wb (108),
+# Y and Ybp (126), Ht (126) and bt (42). The present design evaluates a slot
+# once (140 fewer); the bytes bound either way
 PREP_FLOP_PER_ACTIVE_SLOT = (2 * 95 + 45 + 36 + 18
                              + 45 + 27 + 108 + 126 + 126 + 42)
 
@@ -302,19 +325,87 @@ def ba_case(K, P, M, share, seed, mono_mix=False):
     return prob, cam, ba_mod._prepare_solve(prob, steps_mod._ba_chunk(P))
 
 
-def prep_bound_ms(ws, K, cost_only=False):
+def prep_bound_ms(ws, K, cost_only=False, listed=False):
     """Least time for one launch on this problem: every input read once
     (flags of all slots; pose index, observation and information of the
     active ones; points, poses, lambda), every output written once (active
-    slots only: the others are never written), against the float32
-    operations of the active slots."""
-    M, P = ws.kf.shape
+    slots only: the others are never written; hinv6 and bp charged at all P
+    points, as the first design wrote them), against the float32 operations
+    of the active slots. With `listed` (a workspace whose outputs `prepare`
+    zero-filled, as on the path's maps) only the listed points are charged:
+    the list and its count, their flags and points, their hinv6 and bp."""
+    P, M = ws.kf.shape
     n_act = int(ws.active.sum())
-    bytes_in = M * P + n_act * (4 + 12 + 4) + P * 12 + K * 28 + 4
-    floats_out = n_act * 2 if cost_only else n_act * (18 + 18 + 33 + 2) + P * 9
+    n_pts = int(ws.n_points) if listed else P
+    bytes_in = (n_pts * (M + 12) + n_act * (4 + 12 + 4) + K * 28 + 4
+                + (4 * (n_pts + 1) if listed else 0))
+    floats_out = (n_act * 2 if cost_only
+                  else n_act * (18 + 18 + 33 + 2) + n_pts * 9)
     t_bytes = (bytes_in + 4 * floats_out) / HBM_BYTES_PER_S * 1e3
     t_ops = n_act * PREP_FLOP_PER_ACTIVE_SLOT / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def prep_v1(ws, q, t, pw, lam, cam, d2m, d2s, use_huber, cost_only=False):
+    """Bind the first design of K2 (csrc/ba_prep.cu, symbol
+    ba_prep_launch_v1: slot-major arrays, one thread per point) on the same
+    problem, for timing beside the present one: its inputs transposed and
+    fresh zero-filled [*, M, P] outputs. Returns (run, terms [*, M, P]);
+    run() launches it on the current stream and does nothing else."""
+    lib = ba_prep.load_kernel()
+    P, M = ws.kf.shape
+    kf, isig, flags = (a.t().contiguous() for a in (ws.kf, ws.isig, ws.flags))
+    uvr = ws.uvr.permute(2, 1, 0).contiguous()
+    out = [torch.zeros(s, device="cuda")
+           for s in ((18, M, P), (18, M, P), (33, M, P), (6, P), (3, P),
+                     (M, P), (M, P))]
+    qt = torch.cat([q, t], dim=1).contiguous()
+    pw = pw.contiguous()
+    lam_ptr = 0 if cost_only else lam.data_ptr()
+
+    def run():
+        if lib.ba_prep_launch_v1(
+                qt.data_ptr(), pw.data_ptr(), kf.data_ptr(), uvr.data_ptr(),
+                isig.data_ptr(), flags.data_ptr(), 0, 0, lam_ptr,
+                *[a.data_ptr() for a in out], P, M, cam.fx, cam.fy, cam.cx,
+                cam.cy, cam.bf, d2m, d2s, int(use_huber), int(cost_only),
+                torch.cuda.current_stream().cuda_stream) != 0:
+            raise SystemExit("ba_prep first design failed to launch")
+
+    if cost_only:
+        return run, ba_prep.PrepTerms(None, None, None, None, None, *out[5:])
+    return run, ba_prep.PrepTerms(*out)
+
+
+def point_major(terms):
+    """Slot-major terms of the first design as [*, P, M]."""
+    return ba_prep.PrepTerms(*[
+        a if a is None or name in ("hinv6", "bp") else a.transpose(-1, -2)
+        for name, a in zip(terms._fields, terms)])
+
+
+def k2_times(ws, args, reps_plain=0):
+    """K2 alone, replayed from a CUDA graph (present and first design in
+    turns: v1, new, new, v1), the same from launches queued by the host
+    (``*_stream``, how K1 and K3 are read), the cost-only mode alone, and one
+    wrapper call, on one problem."""
+    run_new = ba_prep._bind_launch(ws, *args)[0]
+    run_v1 = prep_v1(ws, *args)[0]
+    t_v1 = [graph_ms(run_v1)]
+    t_new = [graph_ms(run_new), graph_ms(run_new)]
+    t_v1.append(graph_ms(run_v1))
+    q, t, pw, _, cam, d2m, d2s, huber = args
+    run_cost = ba_prep._bind_launch(ws, q, t, pw, None, cam, d2m, d2s, huber,
+                                    cost_only=True)[0]
+    out = {"kernel_ms": min(t_new), "ms_v1": min(t_v1),
+           "kernel_ms_stream": device_ms(run_new),
+           "ms_v1_stream": device_ms(run_v1),
+           "cost_only_ms": graph_ms(run_cost),
+           "wrapper_ms": cuda_ms(lambda: ba_prep.prep_terms(ws, *args), 20)}
+    if reps_plain:
+        out["plain_ms"] = cuda_ms(
+            lambda: ba_prep._prep_terms_plain(ws, *args), reps_plain)
+    return out
 
 
 def check_prep_kernel():
@@ -322,8 +413,11 @@ def check_prep_kernel():
     stereo mix: every output against the plain version (float32) within 1e-3
     of the output's scale, and no further from a float64 evaluation than
     twice the plain float32 version is; cost-only mode equals the full mode;
-    two launches are bit-identical. Returns the rows and, per shape, the
-    reduced camera system of that build for the PCG check."""
+    two launches are bit-identical. The first design is held against the
+    plain version on the same problem (hinv6 and bp at the listed points:
+    it writes every point) and timed beside the present one. Returns the
+    rows and, per shape, the reduced camera system of that build for the PCG
+    check."""
     rows, systems = [], {}
     shapes = ((64, 32768, 24, 0.15, False), (256, 65536, 8, 1.0, False),
               (8, 1024, 8, 0.8, True), (512, 32768, 8, 1.0, False))
@@ -362,21 +456,34 @@ def check_prep_kernel():
         again = ba_prep.prep_terms(sc.ws, *args)
         if not all(torch.equal(a, b) for a, b in zip(again, kept)):
             raise SystemExit("ba_prep kernel is not deterministic")
-        kernel_ms = cuda_ms(lambda: ba_prep.prep_terms(sc.ws, *args), 20)
-        cost_ms = cuda_ms(lambda: ba_prep.prep_terms(
-            sc.ws, prob.q, prob.t, prob.pw, None, cam, D2M, D2S, True,
-            cost_only=True), 20)
-        plain_ms = cuda_ms(lambda: ba_prep._prep_terms_plain(sc.ws, *args), 3)
+        has = sc.ws.active > 0
+        pts, n_pts = ba_prep.compact_points(has)
+        pts_plain, n_plain = ba_prep._compact_points_plain(has.any(dim=1))
+        if not (torch.equal(pts, pts_plain) and torch.equal(n_pts, n_plain)):
+            raise SystemExit(f"ba_prep compaction kernel disagrees with its "
+                             f"plain version at K={K} P={P} M={M}")
+        run_v1, v1 = prep_v1(sc.ws, *args)
+        run_v1()
+        listed = sc.ws.active.amax(dim=1) > 0
+        err_v1 = max(
+            scale_err(a[:, listed], b[:, listed]) if n in ("hinv6", "bp")
+            else scale_err(a, b)
+            for n, a, b in zip(kept._fields, point_major(v1), p32))
+        times = k2_times(sc.ws, args, reps_plain=3)
         bound_ms, bound_by = prep_bound_ms(sc.ws, K)
         rows.append({"name": "ba_prep", "K": K, "P": P, "M": M,
                      "active_share": float(sc.ws.active.mean()),
+                     "listed_points": int(sc.ws.n_points),
                      "max_err_over_scale": worst, "errors": errs,
                      "max_err_vs_float64": max(k64.values()),
                      "plain_err_vs_float64": max(f64.values()),
-                     "kernel_ms": kernel_ms, "cost_only_ms": cost_ms,
+                     "max_err_v1": err_v1, **times,
                      "cost_only_bound_ms": prep_bound_ms(sc.ws, K, True)[0],
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "compaction_ms": graph_ms(
+                         lambda: ba_prep.compact_points(has)),
+                     "grid_blocks": ba_prep.load_kernel()
+                     .ba_prep_grid_blocks()})
         # the reduced camera system of this build, for K3
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -391,7 +498,7 @@ def check_prep_kernel():
         systems[6 * K] = (
             S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K).contiguous(), rhs,
             torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse)
-        del prob, sc, kept, p32, p64, ws64, k, kc, again, S_blocks
+        del prob, sc, kept, p32, p64, ws64, k, kc, again, S_blocks, v1, run_v1
         torch.cuda.empty_cache()
     print("ba_prep: " + json.dumps(rows))
     return rows, systems
@@ -617,6 +724,7 @@ def reset_counts():
     """Every count to zero, just before a path is driven."""
     pose_opt.pose_optimize.launches = 0
     ba_prep.prep_terms.launches = 0
+    ba_prep.compact_points.launches = 0
     pcg.pcg_solve.launches = 0
     torch_ops.reset_host_fetch_count()
 
@@ -654,9 +762,41 @@ def drive_path(frames, t_gt, local_ba: bool):
         masks.append(obs.mask)
         return real_pose_cuda(q0, t0, obs, *a, **kw)
 
+    # the inputs of every BA solve (K2's workspace without its output
+    # buffers, and the starting poses and points), only kept here; K2 is
+    # timed alone on them after the path. The path's peak memory leaves them
+    # out: the allocator's peak is read and reset where a solve starts and
+    # where it ends (host calls, nothing queued), and each span's peak is
+    # taken less the inputs kept from the solves that had ended before it
+    solves = []
+    mem = {"peak": 0, "kept": 0}
+    real_prepare_solve = ba_mod._prepare_solve
+    real_solve = ba_mod.ba_solve_fast
+
+    def span_peak():
+        mem["peak"] = max(mem["peak"],
+                          torch.cuda.max_memory_allocated() - mem["kept"])
+        torch.cuda.reset_peak_memory_stats()
+
+    def keeping_prepare_solve(prob, chunk):
+        span_peak()
+        sc = real_prepare_solve(prob, chunk)
+        solves.append((sc.ws._replace(buffers=None), prob.q, prob.t, prob.pw))
+        return sc
+
+    def solve_then_keep(*a, **kw):
+        out = real_solve(*a, **kw)
+        span_peak()
+        ws, *rest = solves[-1]
+        mem["kept"] += sum(x.numel() * x.element_size()
+                           for x in (*ws[:-1], *rest))
+        return out
+
     real_extract = frame_mod.extract_frame
     real_local_ba = steps_mod.local_ba_step
     pose_opt._pose_optimize_cuda = counting_pose_cuda
+    ba_mod._prepare_solve = keeping_prepare_solve
+    ba_mod.ba_solve_fast = solve_then_keep
     frame_mod.extract_frame = timed(real_extract, "extract")
     steps_mod.local_ba_step = timed(real_local_ba, "local_ba")
     tracker._create_keyframe = timed(tracker._create_keyframe, "keyframe")
@@ -687,8 +827,12 @@ def drive_path(frames, t_gt, local_ba: bool):
         frame_mod.extract_frame = real_extract
         steps_mod.local_ba_step = real_local_ba
         pose_opt._pose_optimize_cuda = real_pose_cuda
+        ba_mod._prepare_solve = real_prepare_solve
+        ba_mod.ba_solve_fast = real_solve
+    span_peak()
     launches = {"pose_opt": pose_opt.pose_optimize.launches,
                 "ba_prep": ba_prep.prep_terms.launches,
+                "ba_prep_compact": ba_prep.compact_points.launches,
                 "pcg": pcg.pcg_solve.launches}
     system.shutdown()
     n_valid = torch.cat([m.reshape(-1, m.shape[-1]).sum(dim=-1)
@@ -748,7 +892,8 @@ def drive_path(frames, t_gt, local_ba: bool):
         "device_syncs_per_keyframe_frame_median": median(
             syncs[i] for i in range(1, n_frames) if is_kf[i]),
         "device_syncs_per_frame_max": max(syncs[1:]),
-        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "max_memory_allocated_mb": mem["peak"] / 2 ** 20,
+        "kept_solve_inputs_mb": mem["kept"] / 2 ** 20,
         "pose_opt_valid_obs_mean": float(n_valid.mean()),
         "pose_opt_valid_obs_max": int(n_valid.max()),
     }
@@ -796,13 +941,85 @@ def drive_path(frames, t_gt, local_ba: bool):
         if launches["pcg"] < 15 * n_ba:
             problems.append(f"pcg kernel launched {launches['pcg']} times in "
                             f"{n_ba} local BAs (need >= 15 each)")
-    elif launches["ba_prep"] or launches["pcg"] or n_ba:
+        if launches["ba_prep_compact"] < 2 * n_ba:
+            problems.append(f"ba_prep compaction kernel launched "
+                            f"{launches['ba_prep_compact']} times in {n_ba} "
+                            "local BAs (need >= 2 each: one per solve)")
+    elif launches["ba_prep"] or launches["pcg"] or n_ba \
+            or launches["ba_prep_compact"]:
         problems.append("local bundle adjustment ran although switched off")
     if off_card:
         problems.append(f"MapState tensors not on the card: {off_card}")
+    if local_ba and len(solves) != 2 * n_ba:
+        problems.append(f"{len(solves)} BA solves in {n_ba} local BAs "
+                        "(need 2 each)")
     if problems:
         raise SystemExit(f"{label} failed: " + "; ".join(problems))
-    return launches, report
+    return launches, report, solves
+
+
+def prep_real_maps(solves, n_iters=(5, 10)):
+    """K2 on the workspaces the BA path's local bundle adjustments built (two
+    solves each: 5 LM iterations with the Huber kernel, then 10 without; a
+    solve launches K2 once per iteration and twice in cost-only mode): per
+    solve the listed points and active slots, K2 alone in full mode (present
+    and first design in turns) and in cost-only mode, and prep_bound_ms on
+    that workspace, charging the listed points only (the others were
+    zero-filled once per solve). Fresh output buffers; the map is not
+    touched."""
+    lam = torch.full((1,), 1e-4, device="cuda")
+    rows = []
+    for j, (ws, q, t, pw) in enumerate(solves):
+        P, M = ws.kf.shape
+        ws = ws._replace(buffers=tuple(
+            torch.zeros(shape, device="cuda")
+            for shape in ((18, P, M), (18, P, M), (33, P, M), (6, P), (3, P),
+                          (P, M), (P, M))))
+        args = (q, t, pw, lam, CAM, D2M, D2S, j % 2 == 0)
+        times = k2_times(ws, args)
+        bound_ms, bound_by = prep_bound_ms(ws, q.shape[0], listed=True)
+        builds = n_iters[j % 2]
+        rows.append({
+            "local_ba": j // 2, "solve": j % 2,
+            "listed_points": int(ws.n_points), "P": P, "M": M,
+            "active_slots": int(ws.active.sum()),
+            "ms": times["kernel_ms"], "ms_v1": times["ms_v1"],
+            "ms_stream": times["kernel_ms_stream"],
+            "ms_v1_stream": times["ms_v1_stream"],
+            "cost_only_ms": times["cost_only_ms"],
+            "wrapper_ms": times["wrapper_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "cost_only_bound_ms": prep_bound_ms(ws, q.shape[0], True,
+                                                listed=True)[0],
+            "k2_ms_in_solve": builds * times["kernel_ms"]
+            + 2 * times["cost_only_ms"],
+            "k2_ms_in_solve_v1": builds * times["ms_v1"]
+            + 2 * times["cost_only_ms"]})
+        del ws, args
+    print("ba_prep, real maps: " + json.dumps(rows))
+    per_ba = {}
+    for r in rows:
+        acc = per_ba.setdefault(r["local_ba"], [0.0, 0.0])
+        acc[0] += r["k2_ms_in_solve"]
+        acc[1] += r["k2_ms_in_solve_v1"]
+    summary = {
+        "solves": len(rows),
+        "listed_points_median": statistics.median(
+            r["listed_points"] for r in rows),
+        "active_slots_median": statistics.median(
+            r["active_slots"] for r in rows),
+        "ms_median": statistics.median(r["ms"] for r in rows),
+        "ms_v1_median": statistics.median(r["ms_v1"] for r in rows),
+        "ms_stream_median": statistics.median(r["ms_stream"] for r in rows),
+        "bound_ms_median": statistics.median(r["bound_ms"] for r in rows),
+        "bound_share_median": statistics.median(
+            r["bound_ms"] / r["ms"] for r in rows),
+        "k2_ms_per_local_ba_median": statistics.median(
+            v[0] for v in per_ba.values()),
+        "k2_ms_per_local_ba_v1_median": statistics.median(
+            v[1] for v in per_ba.values())}
+    print("ba_prep, real maps, medians: " + json.dumps(summary))
+    return summary
 
 
 def main():
@@ -843,8 +1060,11 @@ def main():
     # 4. the main paths: with local bundle adjustment (what System runs),
     # then the earlier path without it on the first frames of the same run
     frames, t_gt = render_corridor(N_FRAMES_BA)
-    ba_launches, ba_report = drive_path(frames, t_gt, local_ba=True)
-    no_ba_launches, no_ba_report = drive_path(
+    ba_launches, ba_report, solves = drive_path(frames, t_gt, local_ba=True)
+    k2_real = prep_real_maps(solves)
+    del solves
+    torch.cuda.empty_cache()
+    no_ba_launches, no_ba_report, _ = drive_path(
         frames[:N_FRAMES_NO_BA], t_gt[:N_FRAMES_NO_BA], local_ba=False)
     print("ATE on the first 30 frames: "
           f"{ba_report['ate_m_first_30_frames']:.5f} m with local BA, "
@@ -875,10 +1095,19 @@ def main():
         "replaces": "multiagent_orb_slam2_tpu/optim/ba_pallas.py:33",
         "launches": ba_launches["ba_prep"],
         "max_abs_err": k2["max_err_over_scale"],
-        "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+        "ms": k2["kernel_ms"], "ms_v1": k2["ms_v1"],
+        "wrapper_ms": k2["wrapper_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None, "ms_v1": None,
+        "library_ms": None,
+        "ms_stream_launches": k2["kernel_ms_stream"],
         "cost_only_ms": k2["cost_only_ms"],
+        "compaction_ms": k2["compaction_ms"],
+        "compaction_launches": ba_launches["ba_prep_compact"],
+        "ms_real_maps": k2_real["ms_median"],
+        "ms_v1_real_maps": k2_real["ms_v1_median"],
+        "bound_ms_real_maps": k2_real["bound_ms_median"],
+        "listed_points_real_maps": k2_real["listed_points_median"],
+        "active_slots_real_maps": k2_real["active_slots_median"],
     }, {
         "name": "pcg", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/pcg.cu",

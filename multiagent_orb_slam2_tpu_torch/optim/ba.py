@@ -261,7 +261,7 @@ def _prepare_solve(prob: BAProblem, chunk: int) -> _SolveConsts:
                          prob.obs_stereo, prob.obs_mask, prob.point_valid, K)
     # inactive slots go to the (dropped) row K of the one-hot
     kf_masked = torch.where(ws.active > 0, ws.kf.long(),
-                            torch.full_like(ws.kf, K, dtype=torch.int64)).t()
+                            torch.full_like(ws.kf, K, dtype=torch.int64))
     n_chunks, cp = _chunks(P, chunk)
     onehot = (kf_masked[..., None] == torch.arange(K + 1, device=dev)
               ).to(torch.float32).reshape(n_chunks, cp, M, K + 1)
@@ -278,7 +278,8 @@ def _assemble(terms: ba_prep.PrepTerms, sc: _SolveConsts):
     """Reduce the per-observation terms onto keyframes: the cross blocks
     S_blocks [K, K, 6, 6], and the [33, K] sums of Ht / bt / Ybp. Full-width
     one-hot products, chunked over points; every product has a fixed
-    summation order."""
+    summation order. The terms are point-major, so every operand is a view
+    of them."""
     n_chunks, cp, M, KK = sc.onehot.shape
     K = KK - 1
     dev = terms.Wb.device
@@ -287,11 +288,11 @@ def _assemble(terms: ba_prep.PrepTerms, sc: _SolveConsts):
     for ci in range(n_chunks):
         sl = slice(ci * cp, (ci + 1) * cp)
         Of = sc.onehot[ci]                                    # [cp, M, KK]
-        d = terms.diag[:, :, sl].permute(0, 2, 1).reshape(33, cp * M)
+        d = terms.diag[:, sl].reshape(33, cp * M)
         dsum += d @ Of.reshape(cp * M, KK)
         # per-point factorized cross term: U[p, (c, a), k] = sum_m Y O
-        U = torch.bmm(terms.Y[:, :, sl].permute(2, 0, 1), Of)   # [cp, 18, KK]
-        V = torch.bmm(terms.Wb[:, :, sl].permute(2, 0, 1), Of)
+        U = torch.bmm(terms.Y[:, sl].transpose(0, 1), Of)      # [cp, 18, KK]
+        V = torch.bmm(terms.Wb[:, sl].transpose(0, 1), Of)
         # rows (point, coordinate), columns (twist component, pose)
         S_acc += U.reshape(cp * 3, 6 * KK).t() @ V.reshape(cp * 3, 6 * KK)
     S_blocks = S_acc.reshape(6, KK, 6, KK).permute(1, 3, 0, 2)[:K, :K]
@@ -304,7 +305,7 @@ def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
     the build point)."""
     K = q.shape[0]
     ws = sc.ws
-    M, P = ws.kf.shape
+    P, M = ws.kf.shape
     terms = ba_prep.prep_terms(ws, q, t, pw, lam, cam, delta2_m, delta2_s,
                                use_huber)
     cost0 = torch.sum(terms.cost)
@@ -324,8 +325,8 @@ def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
     dc = torch.where(sc.free[:, None], dc, torch.zeros_like(dc))
 
     # back-substitution
-    dcE = dc.t()[:, ws.kf.long()] * ws.active                 # [6, M, P]
-    corr = torch.sum(terms.Wb.view(3, 6, M, P) * dcE, dim=(1, 2))
+    dcE = dc.t()[:, ws.kf.long()] * ws.active                 # [6, P, M]
+    corr = torch.sum(terms.Wb.view(3, 6, P, M) * dcE, dim=(1, 3))
     rp = terms.bp - corr                                      # [3, P]
     h = terms.hinv6
     dp = torch.stack([h[0] * rp[0] + h[1] * rp[1] + h[2] * rp[2],
@@ -395,6 +396,6 @@ def ba_solve_fast(prob: BAProblem, cam: Intrinsics, n_iters: int = 10,
 
     cost, chi2 = cost_fn(q, t, pw)
     return BAResult(q=q, t=t, pw=pw, cost=cost,
-                    obs_chi2=chi2.t().contiguous(),
+                    obs_chi2=chi2,
                     n_iters=_int_scalar(n_iters, dev),
                     band_ov=_int_scalar(0, dev))

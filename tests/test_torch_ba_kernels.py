@@ -3,8 +3,12 @@
 - optim/ba_kernels.py (obs_terms_e, cost_e, sym3_inv, pcg_solve) against the
   JAX functions of the same names;
 - optim/ba_prep.py: the plain version of the Schur-prep kernel against the
-  Pallas body of ba_pallas.prep_terms run in interpret mode, and against its
-  XLA twin (obs_terms_e + sym3_inv);
+  Pallas body of ba_pallas.prep_terms run in interpret mode (the JAX side
+  takes and gives slot-major [*, M, P] arrays, the port point-major
+  [*, P, M]: the test transposes), and against its XLA twin (obs_terms_e +
+  sym3_inv); hinv6 and bp only at points with an active slot, where the
+  kernel writes them (0 elsewhere); the list of such points (compaction)
+  against numpy;
 - optim/pcg.py: the plain version of the PCG kernel against the Pallas body
   of pcg_solve_pallas in interpret mode and against pcg_solve; the row
   ownership of the cluster path (its choice by size is asked of the built
@@ -29,31 +33,19 @@ from multiagent_orb_slam2_tpu_torch.io import ba_problem
 from multiagent_orb_slam2_tpu_torch.optim import ba_kernels as tbk
 from multiagent_orb_slam2_tpu_torch.optim import ba_prep, pcg
 
+import torch_ba_cases as ba_cases
 from torch_parity import interpreted_pallas_call
 
-K, P, M = 8, 1024, 8
-D2M, D2S = 5.991, 7.815
-LAM = 1e-3
+K, P, M = ba_cases.K, ba_cases.P, ba_cases.M
+D2M, D2S, LAM = ba_cases.D2M, ba_cases.D2S, ba_cases.LAM
 PALLAS_TOL = 5e-4
-
-
-def rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+rel_err = ba_cases.rel_err
 
 
 @pytest.fixture(scope="module")
 def prob():
-    """A seeded problem with a stereo / mono mix, per-level information,
-    masked slots, an invalid point and an unset pose index; numpy fields plus
-    the slot-major workspace of the port."""
-    fields, cam = ba_problem.build_problem(K, P, M, seed=5, active_share=0.8)
-    rng = np.random.default_rng(6)
-    fields["obs_stereo"] = rng.random((P, M)) < 0.7
-    fields["obs_inv_sigma2"] = (1.0 / 1.2 ** (2 * rng.integers(0, 8, (P, M)))
-                                ).astype(np.float32)
-    fields["point_valid"][5] = False
-    fields["obs_kf"][7, 2] = -1
+    """_mixed_fields, plus the point-major workspace of the port."""
+    fields, cam = ba_cases.mixed_fields()
     t = {k: torch.from_numpy(np.array(v)) for k, v in fields.items()}
     ws = ba_prep.prepare(t["obs_kf"], t["obs_uvr"], t["obs_inv_sigma2"],
                          t["obs_stereo"], t["obs_mask"], t["point_valid"], K)
@@ -218,19 +210,24 @@ def plain_prep(prob):
 @pytest.fixture(scope="module")
 def pallas_prep(prob):
     """ba_pallas.prep_terms (pb = 1024 divides P) with its kernel body run by
-    the Pallas interpreter, on the slot-major inputs the JAX package builds."""
+    the Pallas interpreter, on the slot-major inputs the JAX package builds
+    (the port's point-major workspace transposed); its outputs transposed
+    back to point-major [*, P, M]."""
     from multiagent_orb_slam2_tpu.optim import ba_pallas as jbp
     f, ws = prob["fields"], prob["ws"]
     pose_t = np.concatenate([f["q"].T, f["t"].T], 0)               # [7, K]
-    g = pose_t[:, ws.kf.numpy().reshape(-1)].reshape(7, M, P)
+    g = pose_t[:, ws.kf.numpy().T.reshape(-1)].reshape(7, M, P)
     with interpreted_pallas_call():
         out = jbp.prep_terms(
-            LAM, jnp.asarray(g), jnp.asarray(ws.uvr.numpy()),
-            jnp.asarray(ws.isig.numpy()),
-            jnp.asarray((ws.flags.numpy() >= 2).astype(np.float32)),
-            jnp.asarray(ws.active.numpy()), jnp.asarray(f["pw"].T),
+            LAM, jnp.asarray(g), jnp.asarray(ws.uvr.numpy().transpose(2, 1, 0)),
+            jnp.asarray(ws.isig.numpy().T),
+            jnp.asarray((ws.flags.numpy().T >= 2).astype(np.float32)),
+            jnp.asarray(ws.active.numpy().T), jnp.asarray(f["pw"].T),
             prob["jcam"], D2M, D2S, True)
-    return [np.asarray(a) for a in out]
+    out = [np.asarray(a) for a in out]
+    # Wb, Y, Ht, bt, Ybp [*, M, P] and chi2 [M, P] to point-major
+    return [np.swapaxes(a, -1, -2) if i < 5 or i == 8 else a
+            for i, a in enumerate(out)]
 
 
 @pytest.mark.parametrize("name", ["Wb", "Y", "Ht", "bt", "Ybp", "hinv6", "bp",
@@ -239,13 +236,15 @@ def test_plain_prep_matches_interpreted_pallas_body(prob, plain_prep,
                                                     pallas_prep, name):
     Wb, Y, Ht, bt, Ybp, hinv6, bp, cost, chi2 = pallas_prep
     t = plain_prep
-    act = prob["active"].T                                     # [M, P]
+    act = prob["active"]                                       # [P, M]
+    listed = act.any(axis=1)             # points with an active slot
+    assert 0 < listed.sum() < P
     if name == "Ht":
         rows = [a * 6 + b for a, b in ba_prep.TRIU6]
         got, want = t.diag[:21].numpy(), Ht[rows]
         # and the Pallas body's Ht is symmetric, so 21 rows carry all of it
-        assert np.array_equal(Ht.reshape(6, 6, M, P),
-                              Ht.reshape(6, 6, M, P).transpose(1, 0, 2, 3))
+        assert np.array_equal(Ht.reshape(6, 6, P, M),
+                              Ht.reshape(6, 6, P, M).transpose(1, 0, 2, 3))
     elif name == "bt":
         got, want = t.diag[21:27].numpy(), bt
     elif name == "Ybp":
@@ -254,6 +253,11 @@ def test_plain_prep_matches_interpreted_pallas_body(prob, plain_prep,
         got, want = t.cost.numpy().sum(), cost
     elif name == "chi2":
         got, want = t.chi2.numpy(), chi2 * act   # the port zeroes unused slots
+    elif name in ("hinv6", "bp"):
+        # written at the listed points only
+        got = getattr(t, name).numpy()
+        assert not got[:, ~listed].any()
+        got, want = got[:, listed], locals()[name][:, listed]
     else:
         got, want = getattr(t, name).numpy(), locals()[name]
     assert np.shape(got) == np.shape(want)
@@ -269,18 +273,21 @@ def test_plain_prep_matches_xla_twin(prob, plain_prep, jax_terms):
     Jc, Jp, r, w = (np.asarray(a, np.float64) for a in (tm.Jc, tm.Jp, tm.r,
                                                         tm.w))
     JpP, wP = Jp.reshape(3, 3, P, M), w.reshape(P, M)
+    listed = prob["active"].any(axis=1)
     H = np.einsum("rapm,rbpm,pm->abp", JpP, JpP, wP)
     H6 = tuple(jnp.asarray(H[a, b], jnp.float32)
                for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)))
     hinv = np.stack([np.asarray(c) for c in jbk.sym3_inv(H6, LAM)])
-    assert rel_err(plain_prep.hinv6.numpy(), hinv) <= 1e-4
+    assert rel_err(plain_prep.hinv6.numpy()[:, listed], hinv[:, listed]) \
+        <= 1e-4
     bp = -np.einsum("rbpm,rpm,pm->bp", JpP, r.reshape(3, P, M), wP)
-    assert rel_err(plain_prep.bp.numpy(), bp) <= 2e-5
+    assert rel_err(plain_prep.bp.numpy()[:, listed], bp[:, listed]) <= 2e-5
+    assert not plain_prep.hinv6.numpy()[:, ~listed].any()
+    assert not plain_prep.bp.numpy()[:, ~listed].any()
     Wb = np.einsum("rae,rce,e->cae", Jc, Jp, w).reshape(18, P, M)
-    assert rel_err(plain_prep.Wb.numpy(), Wb.transpose(0, 2, 1)) <= 2e-5
+    assert rel_err(plain_prep.Wb.numpy(), Wb) <= 2e-5
     bt = -np.einsum("rae,re,e->ae", Jc, r, w).reshape(6, P, M)
-    assert rel_err(plain_prep.diag[21:27].numpy(),
-                   bt.transpose(0, 2, 1)) <= 2e-5
+    assert rel_err(plain_prep.diag[21:27].numpy(), bt) <= 2e-5
     assert rel_err(plain_prep.cost.numpy().sum(), tm.cost) <= 2e-5
 
 
@@ -297,6 +304,44 @@ def test_plain_prep_cost_only_mode(prob, plain_prep):
                                rtol=1e-6, atol=1e-6)
 
 
+def test_prepare_lists_the_points_with_an_active_slot():
+    """The compaction of prepare against numpy: the points with at least one
+    active slot (point 3 with all 24, point 7 whose only slot is behind its
+    camera, point 9 partly behind; not point 11), ascending, padded with
+    zeros, and their count; the behind-camera slots carry chi2 but no terms
+    or cost, and their points are listed and written."""
+    fields, cam = ba_cases.slot_cases_fields()
+    t = {k: torch.from_numpy(np.array(v)) for k, v in fields.items()}
+    ws = ba_prep.prepare(t["obs_kf"], t["obs_uvr"], t["obs_inv_sigma2"],
+                         t["obs_stereo"], t["obs_mask"], t["point_valid"],
+                         t["q"].shape[0])
+    active = (fields["obs_mask"] & (fields["obs_kf"] >= 0)
+              & fields["point_valid"][:, None])
+    want = np.flatnonzero(active.any(axis=1))
+    n = int(ws.n_points[0])
+    assert ws.points.dtype == torch.int32 and ws.n_points.dtype == torch.int32
+    assert ws.points.shape == (active.shape[0],) and n == len(want)
+    np.testing.assert_array_equal(ws.points[:n].numpy(), want)
+    assert (np.diff(ws.points[:n].numpy()) > 0).all()
+    assert not ws.points[n:].any()
+    assert {3, 7, 9} <= set(want) and 11 not in set(want)
+    assert active[3].all() and active[7].sum() == 1
+    np.testing.assert_array_equal(ws.active.numpy(), active)
+    out = ba_prep.prep_terms(ws, t["q"], t["t"], t["pw"], torch.tensor([LAM]),
+                             cam, D2M, D2S, True)
+    behind = [(7, 5), (9, 1), (9, 2)]
+    for p, m in behind + [(9, 0)]:
+        front = (p, m) == (9, 0)
+        assert bool(out.Wb[:, p, m].any()) == front
+        assert bool(out.diag[:, p, m].any()) == front
+        assert (float(out.cost[p, m]) > 0) == front
+        assert float(out.chi2[p, m]) > 0
+    # point 7 has no term in its block: the inverse of the 1e-8 damping
+    # floor (guarded determinant) on the diagonal, zeros off it
+    assert (out.hinv6[[0, 3, 5], 7] > 0).all() and out.hinv6[:, 3].any()
+    assert not out.hinv6[:, 11].any() and not out.bp[:, 11].any()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -306,24 +351,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_prep_kernel_matches_plain_on_the_card(prob, cuda_device):
+@pytest.mark.parametrize("case", ba_cases.CARD_CASES)
+def test_prep_kernel_matches_plain_on_the_card(cuda_device, case):
     """On the card: csrc/ba_prep.cu against the plain version on the same
-    CUDA tensors, 1e-3 of each output's scale (measured 3e-4: one-ulp
-    differences of fused multiply-adds, amplified where world coordinates
-    cancel against small depths)."""
-    f = prob["fields"]
+    CUDA tensors in each case of ba_cases.CARD_CASES (see
+    ba_cases.check_prep_on_card)."""
+    ba_cases.check_prep_on_card(case, cuda_device)
+
+
+@pytest.mark.cuda
+def test_prep_kernel_refuses_more_than_32_slots(cuda_device):
+    """One lane a slot: M = 40 is refused with the limit named, not run."""
+    fields, cam = ba_problem.build_problem(8, 64, 40, seed=26)
     t = {k: torch.from_numpy(np.array(v)).to(cuda_device)
-         for k, v in f.items()}
+         for k, v in fields.items()}
     ws = ba_prep.prepare(t["obs_kf"], t["obs_uvr"], t["obs_inv_sigma2"],
-                         t["obs_stereo"], t["obs_mask"], t["point_valid"], K)
-    lam = torch.full((1,), LAM, device=cuda_device)
-    args = (ws, t["q"], t["t"], t["pw"], lam, prob["cam"], D2M, D2S, True)
-    before = ba_prep.prep_terms.launches
-    k = ba_prep.prep_terms(*args)
-    assert ba_prep.prep_terms.launches == before + 1
-    p = ba_prep._prep_terms_plain(*args)
-    for name, a, b in zip(k._fields, k, p):
-        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= 1e-3, name
+                         t["obs_stereo"], t["obs_mask"], t["point_valid"], 8)
+    with pytest.raises(ValueError, match="limit of 32"):
+        ba_prep.prep_terms(ws, t["q"], t["t"], t["pw"],
+                           torch.full((1,), LAM, device=cuda_device), cam,
+                           D2M, D2S, True)
 
 
 @pytest.mark.cuda

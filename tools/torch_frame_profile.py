@@ -96,6 +96,18 @@ def main():
     print(json.dumps(out))
 
 
+# device time summed by kernel family (first match by name): the port's
+# three kernels, the compaction of K2's point list, and the matrix products
+# of the local BA's assembly
+KERNEL_GROUPS = {
+    "pose_opt (K1)": ("pose_opt_kernel",),
+    "ba_prep (K2)": ("ba_prep_kernel",),
+    "ba_prep compaction": ("ba_prep_compact",),
+    "pcg (K3)": ("pcg_",),
+    "matrix products": ("gemm", "xmma", "splitKreduce"),
+}
+
+
 def summarize(prof, n: int, wall_ms: float, per: str) -> dict:
     """Device busy time, idle share against the untraced wall time, kernel
     count and the largest kernels and host operators of a traced window that
@@ -117,12 +129,23 @@ def summarize(prof, n: int, wall_ms: float, per: str) -> dict:
         return getattr(e, "self_device_time_total", 0) or dev_us(e)
 
     busy_ms = sum(self_us(e) for e in kernels) / 1e3 / n
+    groups = {name: 0.0 for name in KERNEL_GROUPS}
+    launches = {name: 0 for name in KERNEL_GROUPS}
+    for e in kernels:
+        for name, marks in KERNEL_GROUPS.items():
+            if any(m in e.key for m in marks):
+                groups[name] += self_us(e) / 1e3 / n
+                launches[name] += e.count
+                break
     top_k = sorted(kernels, key=lambda e: -self_us(e))[:12]
     top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
     return {
         f"device_busy_ms_per_{per}": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         f"kernels_per_{per}": sum(e.count for e in kernels) / n,
+        f"kernel_groups_ms_per_{per}": groups,
+        f"kernel_group_launches_per_{per}": {
+            k: v / n for k, v in launches.items()},
         f"top_kernels_ms_per_{per}": {
             e.key[:60]: self_us(e) / 1e3 / n for e in top_k},
         f"top_host_ops_ms_per_{per}": {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""What each step of the Hopper designs of K1 and K3 buys, in one process.
+"""What each step of the Hopper designs of K1 and K3 buys, and K2's present
+design against its first, in one process.
 
-    python3 tools/torch_kernel_variants.py
+    python3 tools/torch_kernel_variants.py [k1] [k2] [k3]   (default: all)
 
 K1 (csrc/pose_opt.cu) at N = 2048 in three mask regimes (20 %, 90 % and all
 of the slots valid): the first design, then the present design by its steps
@@ -13,6 +14,13 @@ blocks). K3 (csrc/pcg.cu) on seeded well-conditioned systems of D = 48, 384,
 654 and 924: the grid path, the cluster path with 4, 8 and 16 blocks (a
 16-block cluster is not portable: a refused launch is reported, not fatal),
 the cluster path's load of S alone (0 iterations) and the barrier skeletons.
+K2 (csrc/ba_prep.cu) at (K, P, M) = (64, 32768, 24) on a random 12.6
+%-active mask (chip_smoke.py's main shape) and on active points packed at
+low indices with low slots (as the local BA's maps have them), and at
+(256, 65536, 8): the first design and the present one, each held against the
+plain version and timed alone (launches replayed from a CUDA graph, and
+queued by the host), the compaction alone, and the present design on an
+empty list (the floor of a launch).
 Prints one JSON object per kernel; needs one CUDA device and nvcc.
 """
 import json
@@ -24,9 +32,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (seeded problems, timing helper, camera)
+from multiagent_orb_slam2_tpu_torch import convert  # noqa: E402
 from multiagent_orb_slam2_tpu_torch.config import OptimizerConfig  # noqa: E402
-from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, pcg  # noqa: E402
+from multiagent_orb_slam2_tpu_torch.io import ba_problem  # noqa: E402
+from multiagent_orb_slam2_tpu_torch.optim import ba as ba_mod  # noqa: E402
+from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, ba_prep, pcg  # noqa: E402
 from multiagent_orb_slam2_tpu_torch.optim import pose_opt  # noqa: E402
+from multiagent_orb_slam2_tpu_torch.runtime import steps  # noqa: E402
 from multiagent_orb_slam2_tpu_torch.utils import cuda_build  # noqa: E402
 
 # (label, threads, compact, blocks per pose); None: the first design
@@ -198,18 +210,85 @@ def k3_rows():
     return {"kernel": "pcg", "rows": rows, "chains": chains}
 
 
+def k2_problem(K, P, M, mask, seed):
+    """(prob, cam, solve constants) on the card: a random mask, all slots
+    the generator keeps, or the first P // 5 points with slots 0..4."""
+    if mask == "random":
+        return chip_smoke.ba_case(K, P, M, 0.15, seed=seed)
+    fields, cam = ba_problem.build_problem(K, P, M, seed=seed)
+    if mask == "packed_low":
+        fields["obs_mask"][P // 5:] = False
+        fields["obs_mask"][:, 5:] = False
+    prob = convert.ba_problem_from_numpy(fields, "cuda")
+    return prob, cam, ba_mod._prepare_solve(prob, steps._ba_chunk(P))
+
+
+def k2_rows():
+    lib = ba_prep.load_kernel()
+    rows = []
+    for K, P, M, mask in ((64, 32768, 24, "random"),
+                          (64, 32768, 24, "packed_low"),
+                          (256, 65536, 8, "all")):
+        prob, cam, sc = k2_problem(K, P, M, mask, seed=K + M)
+        ws = sc.ws
+        lam = torch.full((1,), 1e-4, device="cuda")
+        args = (prob.q, prob.t, prob.pw, lam, cam, chip_smoke.D2M,
+                chip_smoke.D2S, True)
+        plain = ba_prep._prep_terms_plain(ws, *args)
+        listed = ws.active.amax(dim=1) > 0
+        head = {"K": K, "P": P, "M": M, "mask": mask,
+                "listed_points": int(ws.n_points),
+                "active_slots": int(ws.active.sum()),
+                "bound_ms": chip_smoke.prep_bound_ms(ws, K)[0],
+                "bound_ms_listed": chip_smoke.prep_bound_ms(
+                    ws, K, listed=True)[0],
+                "compaction_ms": chip_smoke.graph_ms(
+                    lambda: ba_prep.compact_points(ws.active > 0)),
+                "plain_ms": chip_smoke.cuda_ms(
+                    lambda: ba_prep._prep_terms_plain(ws, *args), 3)}
+        # the floor of a launch: the present design with an empty list
+        run_empty = ba_prep._bind_launch(
+            ws._replace(n_points=torch.zeros_like(ws.n_points)), *args)[0]
+        head["empty_list_ms"] = chip_smoke.graph_ms(run_empty)
+        rows.append(head)
+        for label, bind in (("v1", chip_smoke.prep_v1),
+                            ("present", ba_prep._bind_launch)):
+            row = {"variant": label, "K": K, "P": P, "M": M, "mask": mask}
+            run, terms = bind(ws, *args)
+            run()
+            got = chip_smoke.point_major(terms) if label == "v1" else terms
+            row["max_err"] = max(
+                chip_smoke.scale_err(a[:, listed], b[:, listed])
+                if n in ("hinv6", "bp") else chip_smoke.scale_err(a, b)
+                for n, a, b in zip(got._fields, got, plain))
+            kept = [a.clone() for a in terms]
+            run()
+            row["bit_identical"] = all(torch.equal(a, b)
+                                       for a, b in zip(kept, terms))
+            row["ms"] = chip_smoke.graph_ms(run)
+            row["ms_stream"] = chip_smoke.device_ms(run)
+            rows.append(row)
+        del prob, sc, ws, plain
+        torch.cuda.empty_cache()
+    return {"kernel": "ba_prep", "rows": rows,
+            "grid_blocks": lib.ba_prep_grid_blocks()}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    which = sys.argv[1:] or ["k1", "k2", "k3"]
     print(chip_smoke.card_line())
-    cuda_build.load_libraries(["pose_opt", "pcg"])
+    cuda_build.load_libraries([{"k1": "pose_opt", "k2": "ba_prep",
+                                "k3": "pcg"}[k] for k in which])
     print("nvcc seconds: " + json.dumps(cuda_build.build_seconds))
     for name, log in cuda_build.build_logs.items():
         used = [ln.strip() for ln in log.splitlines()
                 if "Used" in ln or "spill" in ln or "error" in ln]
         print(f"ptxas {name}: " + " | ".join(used))
-    print(json.dumps(k1_rows()))
-    print(json.dumps(k3_rows()))
+    for key, fn in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows)):
+        if key in which:
+            print(json.dumps(fn()))
     print(chip_smoke.card_line())
 
 
