@@ -9,16 +9,24 @@ PyTorch version on the card, then drives the port's main paths through
 ``System.track_stereo`` on a rendered stereo corridor at the full
 KITTI-shaped width (1241x376 stereo, 2000 ORB features over 8 levels, 64
 keyframes, 32768 map points, 2048 feature slots, 24 observations per point):
-60 frames with local bundle adjustment and keyframe culling (the default),
-then the first 30 frames with local bundle adjustment switched off. It fails
-(exit code other than 0) when there is no CUDA device, when a kernel does not
-build, launch or agree, when a path never launched its kernels, or when a
-trajectory is wrong. Needs no network and no other process.
+60 frames with local bundle adjustment and keyframe culling and no
+vocabulary, then the first 30 frames with local bundle adjustment switched
+off. Then loop closing: ``System(CFG, vocab)`` with the committed vocabulary
+over 100 frames of the same corridor (keyframe database, loop detection,
+local and global BA, as a user builds the System); a loop detected and
+corrected with global BA on a drifted 110-keyframe ring at (K, P, M) =
+(128, 32768, 24); global BA at the benchmark's size (256, 65536, 8). The
+Schur preparation (K2) and PCG (K3) are held against their plain versions on
+both global BAs' own problems. It fails (exit code other than 0) when there
+is no CUDA device, when a kernel does not build, launch or agree, when a
+path never launched its kernels, or when a trajectory, the keyframe database
+or a loop correction is wrong. Needs no network and no other process.
 
 Output, in order: the card's name and power limit, build seconds and ptxas
 lines, one line per kernel with the comparison at every shape, each path's
-numbers, one JSON object ``{"kernels": [...]}``, the card line again, and as
-the last line ``{"ok": true, "device": {...}}``.
+numbers, the ring's and the benchmark-size global BA's numbers with their
+K2 / K3 checks, one JSON object ``{"kernels": [...]}``, the card line again,
+and as the last line ``{"ok": true, "device": {...}}``.
 
 Times: ``ms`` / ``kernel_ms`` of every kernel is the kernel alone (raw
 launches queued back to back between two CUDA events; for the Schur
@@ -34,6 +42,7 @@ the Schur preparation is timed again, alone, on the workspaces that path's
 local bundle adjustments built (``ba_prep, real maps``).
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -42,24 +51,41 @@ import warnings
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from multiagent_orb_slam2_tpu_torch.config import (Capacities, OrbConfig,
-                                                   OptimizerConfig, Sensor,
-                                                   SlamConfig, TrackingConfig)
+from multiagent_orb_slam2_tpu_torch.config import (Capacities, LoopConfig,
+                                                   OrbConfig, OptimizerConfig,
+                                                   Sensor, SlamConfig,
+                                                   TrackingConfig)
 from multiagent_orb_slam2_tpu_torch import convert
+from multiagent_orb_slam2_tpu_torch.geometry import se3
 from multiagent_orb_slam2_tpu_torch.geometry.camera import Intrinsics
 from multiagent_orb_slam2_tpu_torch.io import ba_problem, synthetic
 from multiagent_orb_slam2_tpu_torch.ops import frame as frame_mod
 from multiagent_orb_slam2_tpu_torch.optim import ba as ba_mod
 from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, ba_prep, pcg
 from multiagent_orb_slam2_tpu_torch.optim import pose_opt
+from multiagent_orb_slam2_tpu_torch.runtime import loop_closing as lc_mod
 from multiagent_orb_slam2_tpu_torch.runtime import steps as steps_mod
 from multiagent_orb_slam2_tpu_torch.runtime import system as system_mod
 from multiagent_orb_slam2_tpu_torch.runtime.tracker import _np_inverse
 from multiagent_orb_slam2_tpu_torch.utils import cuda_build, torch_ops
+from multiagent_orb_slam2_tpu_torch.vocab import bow as bow_mod
+
+# the drifted ring the loop-closing phase closes (numpy + the port only)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+import torch_loop_cases  # noqa: E402
 
 N_FRAMES_BA = 60       # the path with local bundle adjustment
 N_FRAMES_NO_BA = 30    # the earlier path, on the first frames of the same run
+N_FRAMES_LOOP = 100    # the loop path: more than refractory_kfs keyframes
+# the ring of the loop-closing phase, as tests/test_loop_closing.py's front
+# door test has it: 110 keyframes, the last 5 revisiting the first places
+RING_KF, RING_REV, RING_DRIFT = 110, 5, 0.01
+# g2o's global BA time on KITTI 00 (BASELINE.md, split-sequence table): the
+# reference's, taken on a CPU; an outside yardstick, no gate
+G2O_GBA_MS_KITTI00 = 1426.5
 CAM = Intrinsics(fx=718.9, fy=718.9, cx=620.5, cy=188.0, bf=386.1,
                  width=1241, height=376)
 CFG = SlamConfig(
@@ -119,6 +145,63 @@ def graph_ms(run, batch: int = 20, reps: int = 7) -> float:
         for _ in range(batch):
             run()
     return cuda_ms(graph.replay, reps) / batch
+
+
+# device time summed by kernel family (first match by name): the port's
+# three kernels, the compaction of K2's point list, and the matrix products
+# of the local BA's assembly
+KERNEL_GROUPS = {
+    "pose_opt (K1)": ("pose_opt_kernel",),
+    "ba_prep (K2)": ("ba_prep_kernel",),
+    "ba_prep compaction": ("ba_prep_compact",),
+    "pcg (K3)": ("pcg_",),
+    "matrix products": ("gemm", "xmma", "splitKreduce"),
+}
+
+
+def summarize(prof, n: int, wall_ms: float, per: str) -> dict:
+    """Device busy time, idle share against the untraced wall time, kernel
+    count and the largest kernels and host operators of a traced window that
+    held `n` units (frames or calls)."""
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or \
+            getattr(e, "cuda_time_total", 0.0)
+
+    kernels = [e for e in events if dev_us(e) > 0 and
+               getattr(e, "device_type", None) is not None and
+               "cuda" in str(e.device_type).lower()]
+    if not kernels:   # older profiler builds: fall back to self device time
+        kernels = [e for e in events
+                   if getattr(e, "self_device_time_total", 0) > 0]
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total", 0) or dev_us(e)
+
+    busy_ms = sum(self_us(e) for e in kernels) / 1e3 / n
+    groups = {name: 0.0 for name in KERNEL_GROUPS}
+    launches = {name: 0 for name in KERNEL_GROUPS}
+    for e in kernels:
+        for name, marks in KERNEL_GROUPS.items():
+            if any(m in e.key for m in marks):
+                groups[name] += self_us(e) / 1e3 / n
+                launches[name] += e.count
+                break
+    top_k = sorted(kernels, key=lambda e: -self_us(e))[:12]
+    top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
+    return {
+        f"device_busy_ms_per_{per}": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        f"kernels_per_{per}": sum(e.count for e in kernels) / n,
+        f"kernel_groups_ms_per_{per}": groups,
+        f"kernel_group_launches_per_{per}": {
+            k: v / n for k, v in launches.items()},
+        f"top_kernels_ms_per_{per}": {
+            e.key[:60]: self_us(e) / 1e3 / n for e in top_k},
+        f"top_host_ops_ms_per_{per}": {
+            e.key[:60]: e.self_cpu_time_total / 1e3 / n for e in top_cpu},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -485,23 +568,30 @@ def check_prep_kernel():
                      "grid_blocks": ba_prep.load_kernel()
                      .ba_prep_grid_blocks()})
         # the reduced camera system of this build, for K3
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        S_blocks, dsum = ba_mod._assemble(kept, sc)
-        torch.cuda.synchronize()
-        rows[-1]["assembly_ms"] = (time.perf_counter() - t0) * 1e3
-        Hcc = dsum[:21].t()[:, sc.triu]
-        S = ba_mod._reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
-        rhs = torch.where(sc.free[:, None], dsum[21:27].t() - dsum[27:33].t(),
-                          torch.zeros_like(dsum[21:27].t())).reshape(-1)
-        eye6 = torch.eye(6, device="cuda")
-        systems[6 * K] = (
-            S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K).contiguous(), rhs,
-            torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse)
-        del prob, sc, kept, p32, p64, ws64, k, kc, again, S_blocks, v1, run_v1
+        systems[6 * K], rows[-1]["assembly_ms"] = reduced_system(kept, sc, lam)
+        del prob, sc, kept, p32, p64, ws64, k, kc, again, v1, run_v1
         torch.cuda.empty_cache()
     print("ba_prep: " + json.dumps(rows))
     return rows, systems
+
+
+def reduced_system(terms, sc, lam):
+    """((S [D, D], rhs [D], Dinv [K, 6, 6]), assembly ms) of one LM build
+    from K2's terms, as optim/ba._build_and_solve_fast forms them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S_blocks, dsum = ba_mod._assemble(terms, sc)
+    torch.cuda.synchronize()
+    assembly_ms = (time.perf_counter() - t0) * 1e3
+    K = S_blocks.shape[0]
+    Hcc = dsum[:21].t()[:, sc.triu]
+    S = ba_mod._reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
+    rhs = torch.where(sc.free[:, None], dsum[21:27].t() - dsum[27:33].t(),
+                      torch.zeros_like(dsum[21:27].t())).reshape(-1)
+    eye6 = torch.eye(6, device="cuda")
+    return (S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K).contiguous(), rhs,
+            torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse), \
+        assembly_ms
 
 
 def pcg_bound_ms(D, n_iters, warm):
@@ -577,10 +667,12 @@ def check_pcg_kernel(systems):
     float64 solve is no worse than 1.1 x the plain version's, the two
     differ by at most 0.25 of that error (plus 1e-5) in the same norm, and
     the kernel's true residual is no worse than 1.1 x the plain version's.
-    Two launches are bit-identical. D = 48 and 384 go through the cluster
-    path (S resident in shared memory), 1536 and 3072 through the grid path;
-    each row says which (`path`), and at 48 and 384 the grid path is timed
-    beside it on the same system (`ms_v1`)."""
+    Two launches are bit-identical. D <= 924 goes through the cluster path
+    (S resident in shared memory: 48 and 384 here, 768 on the loop-closing
+    phase's global BA), larger D through the grid path (1536 and 3072 here,
+    1536 on the global BA at the benchmark's size); each row says which
+    (`path`), and on the cluster path the grid path is timed beside it on the
+    same system (`ms_v1`)."""
     lib = pcg.load_kernel()
     rows = []
 
@@ -625,7 +717,7 @@ def check_pcg_kernel(systems):
             if not torch.equal(xk, again):
                 raise SystemExit("pcg kernel is not deterministic")
             path = "cluster" if lib.pcg_cluster_blocks(D) > 0 else "grid"
-            if path != ("cluster" if D <= 384 else "grid"):
+            if path != ("cluster" if D <= 924 else "grid"):
                 raise SystemExit(f"pcg took the {path} path at D={D}")
             row["path"] = path
             ms_v1 = wrapper_ms_v1 = None
@@ -729,18 +821,27 @@ def reset_counts():
     torch_ops.reset_host_fetch_count()
 
 
-def drive_path(frames, t_gt, local_ba: bool):
+def drive_path(frames, t_gt, local_ba: bool, vocab=None):
     """Drive System.track_stereo over `frames`; returns (launch counts,
-    report). With local_ba the System runs as it is built (local bundle
-    adjustment on every keyframe once the map has three); without, its
-    tracker's run_local_ba is switched off."""
+    report, the BA solves' inputs). Without a vocabulary the System has no
+    keyframe database and no loop closing; with local_ba it runs local
+    bundle adjustment on every keyframe once the map has three, without, its
+    tracker's run_local_ba is switched off. With a vocabulary (the loop
+    path) the System is built as a user builds it, System(CFG, vocab): local
+    BA, every keyframe registered in the keyframe database and queried for
+    loops, a verified loop corrected and followed by global BA."""
     n_frames = len(frames)
-    label = "BA path" if local_ba else "no-BA path"
-    system = system_mod.System(CFG, None, enable_loop_closing=False)
+    label = ("loop path" if vocab is not None
+             else "BA path" if local_ba else "no-BA path")
+    if vocab is not None:
+        system = system_mod.System(CFG, vocab)
+    else:
+        system = system_mod.System(CFG, None, enable_loop_closing=False)
     tracker = system.tracker
     if not local_ba:
         tracker.run_local_ba = False
-    phase_ms = {"extract": [], "keyframe": [], "local_ba": []}
+    phase_ms = {"extract": [], "keyframe": [], "local_ba": [], "kfdb": []}
+    loop = {"queries": [], "consistent": 0, "sim3_attempts": 0, "loops": []}
 
     def timed(fn, key):
         def wrapper(*a, **kw):
@@ -792,6 +893,52 @@ def drive_path(frames, t_gt, local_ba: bool):
                            for x in (*ws[:-1], *rest))
         return out
 
+    # the loop path's keyframe database and loop closer: the database
+    # insert + query timed and its outputs kept (candidate masks, word ids,
+    # fetched after the path), consistent candidates, Sim3 attempts and
+    # accepted loops counted
+    real_query = lc_mod._detect_loop_query
+    if vocab is not None:
+        closer = system.loop_closer
+        real_detect = closer._detect
+        real_sim3 = closer.compute_sim3
+        real_correct = closer.correct_loop
+
+        def query(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_query(*a, **kw)
+            torch.cuda.synchronize()
+            phase_ms["kfdb"][-1] += (time.perf_counter() - t) * 1e3
+            loop["queries"].append((out[1], out[2], out[3]))
+            return out
+
+        def detect(*a, **kw):
+            out = real_detect(*a, **kw)
+            loop["consistent"] += len(out)
+            return out
+
+        def sim3(*a, **kw):
+            loop["sim3_attempts"] += 1
+            return real_sim3(*a, **kw)
+
+        def correct(shared, match, **kw):
+            out = real_correct(shared, match, **kw)
+            est = np.stack([_np_inverse(q.astype(np.float64),
+                                        t.astype(np.float64))[1]
+                            for _, _, q, t in tracker.export_poses()])
+            n = len(est)
+            loop["loops"].append({
+                "frame": tracker.frame_id, "kf_query": match.kf_query,
+                "kf_match": match.kf_match, "n_matches": match.n_matches,
+                "ate_m_after": float(np.sqrt(np.mean(np.sum(
+                    (est - t_gt[:n]) ** 2, axis=-1))))})
+            return out
+
+        lc_mod._detect_loop_query = query
+        closer._detect, closer.compute_sim3 = detect, sim3
+        closer.correct_loop = correct
+
     real_extract = frame_mod.extract_frame
     real_local_ba = steps_mod.local_ba_step
     pose_opt._pose_optimize_cuda = counting_pose_cuda
@@ -829,6 +976,7 @@ def drive_path(frames, t_gt, local_ba: bool):
         pose_opt._pose_optimize_cuda = real_pose_cuda
         ba_mod._prepare_solve = real_prepare_solve
         ba_mod.ba_solve_fast = real_solve
+        lc_mod._detect_loop_query = real_query
     span_peak()
     launches = {"pose_opt": pose_opt.pose_optimize.launches,
                 "ba_prep": ba_prep.prep_terms.launches,
@@ -950,12 +1098,347 @@ def drive_path(frames, t_gt, local_ba: bool):
         problems.append("local bundle adjustment ran although switched off")
     if off_card:
         problems.append(f"MapState tensors not on the card: {off_card}")
-    if local_ba and len(solves) != 2 * n_ba:
-        problems.append(f"{len(solves)} BA solves in {n_ba} local BAs "
-                        "(need 2 each)")
+    n_gba = len(loop["loops"])
+    if local_ba and len(solves) != 2 * n_ba + n_gba:
+        problems.append(f"{len(solves)} BA solves in {n_ba} local BAs and "
+                        f"{n_gba} global BAs (need 2 and 1)")
+    if vocab is not None:
+        problems += loop_report(label, system, loop, phase_ms, fetches,
+                                syncs, is_kf, report)
     if problems:
         raise SystemExit(f"{label} failed: " + "; ".join(problems))
     return launches, report, solves
+
+
+def loop_report(label, system, loop, phase_ms, fetches, syncs, is_kf,
+                report):
+    """The loop path's own numbers, printed, and its gate: the keyframe
+    database holds every live keyframe and no culled one, and every keyframe
+    created was registered and queried. Returns the problems found. The
+    candidate masks and word ids kept during the path are read here, after
+    it; the words that the database's 1024-word cap drops are counted here,
+    not in the package."""
+    shared, closer = system.shared, system.loop_closer
+    n_q = len(loop["queries"])
+    M = closer.db.words.shape[1]
+    cands, dropped = [], []
+    for cand, words, valid in loop["queries"]:
+        cands.append(int(cand.sum()))
+        n_unique = torch.unique(words[valid & (words >= 0)]).numel()
+        dropped.append(max(0, n_unique - M))
+    n = shared.n_kf
+    active = closer.db.active[:n].cpu().numpy()
+    valid = shared.state.kf_valid[:n].cpu().numpy()
+    live = sorted(shared.uid_slot.values())
+    kfdb_ms = [m for m in phase_ms["kfdb"] if m > 0]
+    out = {
+        "keyframes_created": shared.n_created, "keyframes_live": len(live),
+        "kfdb_queries": n_q,
+        "kfdb_register_query_ms_median": statistics.median(kfdb_ms),
+        "kfdb_register_query_ms_max": max(kfdb_ms),
+        "candidates_per_keyframe_mean": float(np.mean(cands)),
+        "candidates_per_keyframe_max": max(cands),
+        "consistent_candidates_per_keyframe":
+            loop["consistent"] / max(n_q, 1),
+        "sim3_attempts_per_keyframe": loop["sim3_attempts"] / max(n_q, 1),
+        "sim3_attempts": loop["sim3_attempts"],
+        "loops_accepted": loop["loops"],
+        "host_fetches_per_keyframe_frame_median":
+            report["host_fetches_per_keyframe_frame_median"],
+        "device_syncs_per_keyframe_frame_median":
+            report["device_syncs_per_keyframe_frame_median"],
+        "words_dropped_by_cap_per_keyframe_mean": float(np.mean(dropped)),
+        "words_dropped_by_cap_per_keyframe_max": max(dropped),
+        "kfdb_words_per_keyframe_cap": M}
+    print(f"{label}, keyframe database and loop closing: " + json.dumps(out))
+    print(f"{label}: ms per keyframe for KFDB registration and query "
+          f"(median) {out['kfdb_register_query_ms_median']:.2f}; per keyframe "
+          f"{out['candidates_per_keyframe_mean']:.2f} candidates, "
+          f"{out['consistent_candidates_per_keyframe']:.2f} consistent, "
+          f"{out['sim3_attempts_per_keyframe']:.2f} Sim3 attempts; "
+          f"{len(loop['loops'])} loops accepted")
+    problems = []
+    if not (np.array_equal(active, valid)
+            and list(np.nonzero(active)[0]) == live):
+        problems.append(f"keyframe database rows {np.nonzero(active)[0]} "
+                        f"are not the live keyframes {live}")
+    if n_q != shared.n_created:
+        problems.append(f"{n_q} database queries for {shared.n_created} "
+                        "keyframes")
+    return problems
+
+
+def keyframe_centres(state):
+    """Camera centres of every keyframe slot, on the host."""
+    return se3.inverse(state.kf_q, state.kf_t)[1].cpu().numpy()
+
+
+def drive_ring(vocab):
+    """Loop correction with global BA at full width: the drifted ring of
+    tests/torch_loop_cases.py (110 keyframes, the last 5 revisiting the first
+    places, drift 0.01), its capacities CFG's except 128 keyframes, so global
+    BA runs at (K, P, M) = (128, 32768, 24) and K3 at D = 768; as many points
+    per cluster as 32768 slots hold with the revisit duplicates; the
+    committed vocabulary. Driven through LoopCloser.process_keyframe and
+    correct_loop(run_gba=True). Gates, as the JAX package's front-door test
+    has them: a loop detected (not injected) with query >= 105 and match
+    <= 8, the corrected query keyframe within 0.02 m, the tail keyframe's
+    error down by 25 %, the mean error down. Returns (report, the global
+    BA's problem, launches in global BA)."""
+    caps = Capacities(max_keyframes=128, max_points=CFG.caps.max_points,
+                      max_features=CFG.caps.max_features,
+                      local_points=CFG.caps.local_points)
+    cfg = torch_loop_cases.CFG.replace(caps=caps, loop=LoopConfig())
+    n_pts = max(n for n in range(1, caps.max_points)
+                if torch_loop_cases.ring_points(RING_KF, RING_REV, n)
+                <= caps.max_points)
+    t0 = time.perf_counter()
+    shared, (_, ts_gt) = torch_loop_cases.build_drifted_ring(
+        n_kf=RING_KF, n_rev=RING_REV, n_pts_per=n_pts, drift=RING_DRIFT,
+        cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ts_gt = np.stack(ts_gt)
+    closer = lc_mod.LoopCloser(cfg, vocab)
+
+    def errs():
+        return np.linalg.norm(keyframe_centres(shared.state)[:RING_KF]
+                              - ts_gt, axis=1)
+
+    before = errs()
+    ms = {k: [] for k in ("detect", "compute_sim3", "correct_and_fuse",
+                          "essential_graph", "gba")}
+    gba = {"launches": None, "prob": None}
+    patched, last_call = [], {}
+
+    def timed(owner, name, key):
+        real = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t) * 1e3)
+            last_call[name] = (real, a, kw)
+            return out
+        patched.append((owner, name, real))
+        setattr(owner, name, wrapper)
+
+    def warm_ms(name):
+        """The last call of `name` again, once its kernels and torch.func's
+        transforms are warm (its first call in a process pays for both)."""
+        real, a, kw = last_call[name]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(*a, **kw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    def in_gba(st, cfg_, n_iters=None):
+        before_l = (ba_prep.prep_terms.launches, pcg.pcg_solve.launches,
+                    ba_prep.compact_points.launches)
+        real_solve = ba_mod.ba_solve_fast
+
+        def keep(prob, *a, **kw):
+            gba["prob"] = prob
+            return real_solve(prob, *a, **kw)
+        ba_mod.ba_solve_fast = keep
+        try:
+            out = real_gba(st, cfg_, n_iters)
+        finally:
+            ba_mod.ba_solve_fast = real_solve
+        gba["launches"] = {
+            "ba_prep": ba_prep.prep_terms.launches - before_l[0],
+            "pcg": pcg.pcg_solve.launches - before_l[1],
+            "ba_prep_compact":
+                ba_prep.compact_points.launches - before_l[2]}
+        return out
+
+    real_gba = lc_mod.global_bundle_adjustment
+    patched.append((lc_mod, "global_bundle_adjustment", real_gba))
+    timed(lc_mod, "_detect_loop_query", "detect")
+    timed(closer, "compute_sim3", "compute_sim3")
+    for owner, name in ((lc_mod, "correct_neighborhood"),
+                        (lc_mod.mapping, "fuse_into_neighborhood"),
+                        (lc_mod.mapping, "rebuild_observations"),
+                        (lc_mod.steps, "recompute_covisibility")):
+        timed(owner, name, "correct_and_fuse")
+    for owner, name in ((lc_mod, "build_essential_edges"),
+                        (lc_mod.pg, "optimize_pose_graph"),
+                        (lc_mod, "apply_pose_graph_result")):
+        timed(owner, name, "essential_graph")
+    lc_mod.global_bundle_adjustment = in_gba
+    timed(lc_mod, "global_bundle_adjustment", "gba")
+
+    matches = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        for k in range(RING_KF):
+            m = closer.process_keyframe(shared, k)
+            if m is not None:
+                matches.append(m)
+                closer.correct_loop(shared, m, run_gba=True)
+        torch.cuda.synchronize()
+    finally:
+        for owner, name, real in reversed(patched):
+            setattr(owner, name, real)
+    wall_s = time.perf_counter() - t0
+    launches = {"pose_opt": pose_opt.pose_optimize.launches,
+                "ba_prep": ba_prep.prep_terms.launches,
+                "ba_prep_compact": ba_prep.compact_points.launches,
+                "pcg": pcg.pcg_solve.launches}
+    after = errs()
+    # warm repeats of the host-bound stages, on the map as it now stands
+    # (their results are dropped)
+    warm = {f"{name}_warm_ms": warm_ms(name) for name in
+            ("compute_sim3", "optimize_pose_graph") if name in last_call}
+    report = {
+        "keyframes": RING_KF, "revisit_keyframes": RING_REV,
+        "points_per_cluster": n_pts, "point_slots_used": shared.n_mp,
+        "point_slots": caps.max_points, "build_s": build_s, "wall_s": wall_s,
+        "loops": [{"kf_query": m.kf_query, "kf_match": m.kf_match,
+                   "n_matches": m.n_matches, "s": m.s} for m in matches],
+        "err_query_m": float(after[matches[0].kf_query]) if matches
+        else None,
+        "err_tail_m_before": float(before[-1]),
+        "err_tail_m_after": float(after[-1]),
+        "err_mean_m_before": float(before.mean()),
+        "err_mean_m_after": float(after.mean()),
+        "detect_ms_per_keyframe_median": statistics.median(ms["detect"]),
+        "detect_ms_total": sum(ms["detect"]),
+        "compute_sim3_ms": ms["compute_sim3"],
+        "correct_and_fuse_ms": sum(ms["correct_and_fuse"]),
+        "essential_graph_ms": sum(ms["essential_graph"]),
+        "gba_ms": ms["gba"], **warm, "launches": launches,
+        "gba_launches": gba["launches"],
+        "host_fetches": torch_ops.host_fetch_count(),
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20}
+    print("ring: " + json.dumps(report))
+    problems = []
+    if not matches:
+        problems.append("no loop detected through process_keyframe")
+    else:
+        m = matches[0]
+        if m.kf_query < RING_KF - RING_REV or m.kf_match > 8:
+            problems.append(f"loop {m.kf_query} -> {m.kf_match} (need query "
+                            f">= {RING_KF - RING_REV}, match <= 8)")
+        if not report["err_query_m"] < 0.02:
+            problems.append("corrected query keyframe "
+                            f"{report['err_query_m']:.4f} m off "
+                            "(need < 0.02)")
+    if not after[-1] < 0.75 * before[-1]:
+        problems.append(f"tail error {after[-1]:.4f} m against "
+                        f"{before[-1]:.4f} before (need 25 % less)")
+    if not after.mean() < before.mean():
+        problems.append(f"mean error {after.mean():.4f} m against "
+                        f"{before.mean():.4f} before")
+    gl = gba["launches"]
+    if gl is None or gl["ba_prep"] < 10 or gl["pcg"] < 10:
+        problems.append(f"global BA launched K2 / K3 {gl} (need >= 10 each)")
+    if problems:
+        raise SystemExit("ring failed: " + "; ".join(problems))
+    return report, gba["prob"], gl
+
+
+def check_gba_kernels(label, prob, cam, chunk):
+    """K2 and K3 on a global BA's own problem at its first LM build: K2
+    against its plain version (1e-3 of each output's scale, two launches
+    bit-identical), timed alone beside its first design, with its bound on
+    this workspace; K3 on that build's reduced camera system through
+    check_pcg_kernel (energy norm, bit-identical, the path D selects); and
+    two whole solves of the problem (10 LM iterations) bit-identical.
+    Returns (K2 row, K3 row with a warm start)."""
+    K = prob.q.shape[0]
+    P, M = prob.obs_kf.shape
+    a, b = (ba_mod.ba_solve_fast(prob, cam, n_iters=10, chunk=chunk)
+            for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise SystemExit(f"{label}: two solves are not bit-identical")
+    print(f"{label}: two solves of 10 LM iterations bit-identical, cost "
+          f"{float(a.cost):.6g}")
+    del a, b
+    sc = ba_mod._prepare_solve(prob, chunk)
+    lam = torch.full((1,), 1e-4, device="cuda")
+    args = (prob.q, prob.t, prob.pw, lam, cam, D2M, D2S, True)
+    k = ba_prep.prep_terms(sc.ws, *args)
+    torch.cuda.synchronize()
+    kept = ba_prep.PrepTerms(*[a.clone() for a in k])
+    p32 = ba_prep._prep_terms_plain(sc.ws, *args)
+    errs = {n: scale_err(a, b) for n, a, b in zip(kept._fields, kept, p32)}
+    worst = max(errs.values())
+    finite = all(bool(torch.isfinite(a).all()) for a in kept)
+    again = ba_prep.prep_terms(sc.ws, *args)
+    same = all(torch.equal(a, b) for a, b in zip(again, kept))
+    if not finite or worst > 1e-3 or not same:
+        raise SystemExit(f"ba_prep kernel on {label} (K={K} P={P} M={M}): "
+                         f"errors over scale {errs} (tolerance 1e-3), "
+                         f"bit-identical launches: {same}")
+    times = k2_times(sc.ws, args, reps_plain=3)
+    bound_ms, bound_by = prep_bound_ms(sc.ws, K, listed=True)
+    row = {"name": "ba_prep", "on": label, "K": K, "P": P, "M": M,
+           "listed_points": int(sc.ws.n_points),
+           "active_slots": int(sc.ws.active.sum()),
+           "max_err_over_scale": worst, **times,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    system, row["assembly_ms"] = reduced_system(kept, sc, lam)
+    print(f"{label}, ba_prep: " + json.dumps(row))
+    del sc, kept, p32, k, again
+    torch.cuda.empty_cache()
+    print(f"{label}, pcg on its reduced camera system:")
+    k3 = check_pcg_kernel({6 * K: system})
+    return row, next(r for r in k3 if r["warm_start"])
+
+
+def bench_gba():
+    """Global BA at the benchmark's size (bench.py's GBA: build_problem(),
+    K = 256, P = 65536, M = 8; 10 LM iterations, chunk 8192): a finite cost,
+    ms per solve (CUDA events, median of 3), and one traced solve's device
+    busy / idle split by kernel family.
+    g2o's time for the reference's global BA on KITTI 00 (a CPU) stands
+    beside it, no gate. Returns (report, problem, camera, launches)."""
+    fields, cam = ba_problem.build_problem()
+    prob = convert.ba_problem_from_numpy(fields, "cuda")
+
+    def solve():
+        return ba_mod.ba_solve_fast(prob, cam, n_iters=10, chunk=8192)
+
+    solve()
+    torch.cuda.synchronize()
+    reset_counts()
+    a = solve()
+    torch.cuda.synchronize()
+    launches = {"ba_prep": ba_prep.prep_terms.launches,
+                "ba_prep_compact": ba_prep.compact_points.launches,
+                "pcg": pcg.pcg_solve.launches}
+    if not bool(torch.isfinite(a.cost)):
+        raise SystemExit("bench GBA: cost not finite")
+    wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    ms = cuda_ms(solve, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    report = {"K": prob.q.shape[0], "P": prob.obs_kf.shape[0],
+              "M": prob.obs_kf.shape[1], "n_iters": 10, "chunk": 8192,
+              "ms_per_solve": ms, "wall_ms_median": statistics.median(wall),
+              "cost": float(a.cost), "launches": launches,
+              "g2o_gba_ms_kitti00_cpu": G2O_GBA_MS_KITTI00}
+    report.update(summarize(prof, 1, report["wall_ms_median"], "solve"))
+    print("bench GBA: " + json.dumps(report))
+    print(f"bench GBA: {ms:.2f} ms per solve (10 LM iterations), device "
+          f"busy {report['device_busy_ms_per_solve']:.2f} ms; the reference's "
+          f"g2o global BA on KITTI 00 took {G2O_GBA_MS_KITTI00} ms on a CPU "
+          "(BASELINE.md), a yardstick, no gate")
+    return report, prob, cam, launches
 
 
 def prep_real_maps(solves, n_iters=(5, 10)):
@@ -1022,6 +1505,19 @@ def prep_real_maps(solves, n_iters=(5, 10)):
     return summary
 
 
+def gba_keys(row, suffix):
+    """A K2 or K3 row measured on a global BA's problem, as keys of the
+    kernel's entry in the {"kernels": ...} line."""
+    keys = {"K": "K", "D": "D", "path": "path",
+            "max_err_over_scale": "max_err", "err_32_iters": "max_err",
+            "energy_diff": "energy_norm_diff", "kernel_ms": "ms",
+            "ms_v1": "ms_v1", "plain_ms": "plain_ms", "bound_ms": "bound_ms",
+            "bound_by": "bound_by", "wrapper_ms": "wrapper_ms",
+            "assembly_ms": "assembly_ms"}
+    return {f"{new}_{suffix}": row[old] for old, new in keys.items()
+            if old in row}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1057,10 +1553,11 @@ def main():
     torch.cuda.empty_cache()
     check_solver_determinism()
 
-    # 4. the main paths: with local bundle adjustment (what System runs),
-    # then the earlier path without it on the first frames of the same run
-    frames, t_gt = render_corridor(N_FRAMES_BA)
-    ba_launches, ba_report, solves = drive_path(frames, t_gt, local_ba=True)
+    # 4. the paths without a vocabulary: with local bundle adjustment, then
+    # without it on the first frames of the same corridor
+    frames, t_gt = render_corridor(N_FRAMES_LOOP)
+    ba_launches, ba_report, solves = drive_path(
+        frames[:N_FRAMES_BA], t_gt[:N_FRAMES_BA], local_ba=True)
     k2_real = prep_real_maps(solves)
     del solves
     torch.cuda.empty_cache()
@@ -1070,8 +1567,31 @@ def main():
           f"{ba_report['ate_m_first_30_frames']:.5f} m with local BA, "
           f"{no_ba_report['ate_m_first_30_frames']:.5f} m without")
 
-    # 5. the record: each kernel at the shape its main path gives it, its
-    # launches read right after that path (pose_opt: both paths)
+    # 5. loop closing: the System as a user builds it (the committed
+    # vocabulary; keyframe database, loop closing and global BA on) over the
+    # whole corridor; then a loop corrected with global BA on the drifted
+    # ring; then global BA at the benchmark's size. K2 and K3 are held
+    # against their plain versions on both global BAs' own problems
+    vocab = bow_mod.load_vocabulary()
+    loop_launches, loop_report_, solves = drive_path(frames, t_gt,
+                                                     local_ba=True,
+                                                     vocab=vocab)
+    del solves, frames
+    torch.cuda.empty_cache()
+    ring_report, ring_prob, ring_launches = drive_ring(vocab)
+    ring_k2, ring_k3 = check_gba_kernels(
+        "ring GBA", ring_prob, torch_loop_cases.CAM,
+        steps_mod._ba_chunk(ring_prob.pw.shape[0]))
+    del ring_prob
+    torch.cuda.empty_cache()
+    bench_report, bench_prob, bench_cam, bench_launches = bench_gba()
+    bench_k2, bench_k3 = check_gba_kernels("bench GBA", bench_prob,
+                                           bench_cam, 8192)
+    del bench_prob
+
+    # 6. the record: each kernel at the shape its main path gives it, its
+    # launches read right after each path; K2 and K3 also at the two global
+    # BAs' shapes
     k2 = k2_rows[0]                                   # K=64 P=32768 M=24
     k3 = next(r for r in k3_rows if r["D"] == 384 and r["warm_start"])
     kernels = [{
@@ -1080,6 +1600,7 @@ def main():
         "replaces": "multiagent_orb_slam2_tpu/optim/pose_opt_pallas.py:117",
         "launches": ba_launches["pose_opt"],
         "launches_no_ba_path": no_ba_launches["pose_opt"],
+        "launches_loop_path": loop_launches["pose_opt"],
         "max_abs_err": k1["max_err"],
         "ms": k1["kernel_ms"], "ms_v1": k1["ms_v1"],
         "wrapper_ms": k1["wrapper_ms"], "wrapper_ms_v1": k1["wrapper_ms_v1"],
@@ -1108,6 +1629,10 @@ def main():
         "bound_ms_real_maps": k2_real["bound_ms_median"],
         "listed_points_real_maps": k2_real["listed_points_median"],
         "active_slots_real_maps": k2_real["active_slots_median"],
+        "launches_loop_path": loop_launches["ba_prep"],
+        "launches_ring_gba": ring_launches["ba_prep"],
+        "launches_bench_gba": bench_launches["ba_prep"],
+        **gba_keys(ring_k2, "ring_gba"), **gba_keys(bench_k2, "bench_gba"),
     }, {
         "name": "pcg", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/pcg.cu",
@@ -1124,6 +1649,10 @@ def main():
         "library_ms": None,
         "cholesky_solve_ms": k3["cholesky_solve_ms"],
         "serial_floor_ms": k3["serial_floor_ms"],
+        "launches_loop_path": loop_launches["pcg"],
+        "launches_ring_gba": ring_launches["pcg"],
+        "launches_bench_gba": bench_launches["pcg"],
+        **gba_keys(ring_k3, "ring_gba"), **gba_keys(bench_k3, "bench_gba"),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

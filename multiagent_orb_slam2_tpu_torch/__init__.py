@@ -8,7 +8,9 @@ What is ported so far: single-agent stereo tracking and mapping with local
 bundle adjustment and keyframe culling (``System.track_stereo`` ->
 ``ops.frame.extract_frame`` -> ``runtime.steps.track_frame_step`` ->
 ``runtime.steps.keyframe_pipeline_step`` -> ``runtime.steps.local_ba_step``
--> ``optim.ba.ba_solve_fast``). The three kernels of that path are
+-> ``optim.ba.ba_solve_fast``), and loop closing with place recognition
+(``vocab``, ``runtime.loop_closing``: keyframe database, Sim3 RANSAC and
+refinement, essential graph, global BA). The three kernels of that path are
 hand-written CUDA for sm_90a: the pose-only optimizer (``csrc/pose_opt.cu``,
 bound in ``optim/pose_opt.py``), the Schur preparation of bundle adjustment
 (``csrc/ba_prep.cu``, ``optim/ba_prep.py``) and its preconditioned

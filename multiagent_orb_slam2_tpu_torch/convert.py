@@ -1,8 +1,11 @@
 """Carry state between the JAX package and this one, through numpy.
 
 The engine has no weights; its state is ``MapState``, ``FrameFeatures``,
-``PoseObs`` and the bundle-adjustment tuples ``BAProblem`` / ``BAResult``. These functions take and return numpy arrays (a test calls
-``np.asarray`` on the JAX side), so nothing here imports JAX. ``uint32``
+``PoseObs``, the bundle-adjustment tuples ``BAProblem`` / ``BAResult``, the
+loop-closing tuples ``PoseGraphEdges`` / ``PoseGraphResult``, the keyframe
+database ``KFDatabase`` and the ``Vocabulary``. These functions take and
+return numpy arrays (a test calls ``np.asarray`` on the JAX side), so
+nothing here imports JAX. ``uint32``
 descriptor words are re-viewed as ``int32`` (same bits), never
 value-converted; every other integer array becomes int32, floats float32.
 """
@@ -18,7 +21,10 @@ from .geometry.camera import Intrinsics
 from .mapstate.state import MapState
 from .ops.frame import FrameFeatures
 from .optim.ba import BAProblem, BAResult
+from .optim.pose_graph import PoseGraphEdges, PoseGraphResult
 from .optim.pose_opt import PoseObs
+from .vocab.bow import Vocabulary
+from .vocab.kfdb import KFDatabase
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -91,6 +97,44 @@ def ba_result_from_numpy(fields: dict, device) -> BAResult:
 
 def ba_result_to_numpy(result: BAResult) -> dict:
     return _to_numpy(result)
+
+
+def pose_graph_edges_from_numpy(fields: dict, device) -> PoseGraphEdges:
+    return _from_numpy(PoseGraphEdges, fields, device)
+
+
+def pose_graph_edges_to_numpy(edges: PoseGraphEdges) -> dict:
+    return _to_numpy(edges)
+
+
+def pose_graph_result_from_numpy(fields: dict, device) -> PoseGraphResult:
+    return _from_numpy(PoseGraphResult, fields, device)
+
+
+def pose_graph_result_to_numpy(result: PoseGraphResult) -> dict:
+    return _to_numpy(result)
+
+
+def kfdb_from_numpy(fields: dict, device) -> KFDatabase:
+    return _from_numpy(KFDatabase, fields, device)
+
+
+def kfdb_to_numpy(db: KFDatabase) -> dict:
+    return _to_numpy(db)
+
+
+def vocabulary_from_numpy(fields: dict, device) -> Vocabulary:
+    """{"centroids": [levels of [k^(l+1), 8] uint32], "idf", "k", "depth"}
+    -> Vocabulary on `device`."""
+    return Vocabulary(tuple(to_tensor(c, device) for c in fields["centroids"]),
+                      to_tensor(fields["idf"], device), int(fields["k"]),
+                      int(fields["depth"]))
+
+
+def vocabulary_to_numpy(vocab: Vocabulary) -> dict:
+    return {"centroids": [to_numpy(c, unsigned=True)
+                          for c in vocab.centroids],
+            "idf": to_numpy(vocab.idf), "k": vocab.k, "depth": vocab.depth}
 
 
 def config_from_dict(d: dict) -> config_mod.SlamConfig:

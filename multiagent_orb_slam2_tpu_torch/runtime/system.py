@@ -1,12 +1,13 @@
-"""Per-agent System facade: tracking + trajectory export.
+"""Per-agent System facade: tracking + loop closing + trajectory export.
 
 Counterpart of the JAX package's ``runtime/system.py`` (reference System).
 Ported: stereo tracking with local bundle adjustment and keyframe culling,
-and the trajectory writers. Loop closing, relocalization, the keyframe
-database, RGB-D and monocular entry points and map checkpoints raise
+loop closing with its keyframe database and global bundle adjustment (on by
+default, as in the JAX package), and the trajectory writers.
+Relocalization, RGB-D and monocular entry points and map checkpoints raise
 NotImplementedError naming their ROADMAP.md item. A tracker that gets LOST
-stays LOST (it dead-reckons on the motion model), since relocalization is
-what would recover it.
+stays LOST (it dead-reckons on the motion model): the JAX ``System._track``
+calls ``_relocalize`` there, which is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ import torch
 from ..config import SlamConfig
 from ..io import trajectory as traj_mod
 from ..ops import frame as frame_mod
+from ..vocab import bow as bow_mod
+from ..vocab import kfdb as kfdb_mod
+from . import loop_closing as lc
 from .tracker import (SharedMap, Tracker, _np_inverse, _np_normalize)
 
 
@@ -27,27 +31,35 @@ def _not_ported(what: str, item: str):
 
 
 class System:
-    """Single-agent SLAM engine."""
+    """Single-agent SLAM engine.
 
-    def __init__(self, cfg: SlamConfig, vocab=None,
+    With a vocabulary (``vocab.bow.load_vocabulary()`` reads the committed
+    asset), every keyframe is registered in the keyframe database and, with
+    loop closing on (the default), queried for loops; a verified loop is
+    corrected and followed by a global BA (``run_gba``). Without one
+    (``System(cfg, None, enable_loop_closing=False)``) there is no keyframe
+    database: nothing is registered and culled slots are reusable at once.
+    Loop closing without a vocabulary raises ValueError.
+    """
+
+    def __init__(self, cfg: SlamConfig, vocab: Optional[bow_mod.Vocabulary],
                  shared: Optional[SharedMap] = None, agent: int = 0,
                  enable_loop_closing: bool = True, run_gba: bool = True,
                  device=torch.device("cuda")):
-        if enable_loop_closing:
-            raise _not_ported("System(enable_loop_closing=True)",
-                              "11, 'Loop closing and place recognition'")
-        if vocab is not None:
-            raise _not_ported("a vocabulary (keyframe database "
-                              "registration)",
-                              "11, 'Loop closing and place recognition'")
+        if vocab is None and enable_loop_closing:
+            raise ValueError(
+                "loop closing needs a vocabulary (vocab.bow.load_vocabulary() "
+                "reads the committed one), or pass enable_loop_closing=False")
         self.cfg = cfg
-        self.vocab = None
+        self.vocab = vocab
         self.device = torch.device(device)
         self.shared = shared or SharedMap(cfg, device=self.device)
         self.tracker = Tracker(cfg, self.shared, agent=agent, map_id=agent,
                                device=self.device)
-        self.enable_loop_closing = False
-        self.run_gba = False
+        self.loop_closer = (lc.LoopCloser(cfg, vocab) if vocab is not None
+                            else None)
+        self.enable_loop_closing = enable_loop_closing
+        self.run_gba = run_gba
         self.n_relocalizations = 0
 
     # -- tracking entry points (reference System::Track*) ------------------
@@ -72,18 +84,41 @@ class System:
         self.tracker.set_localization_mode(False)
 
     def _track(self, feats, frame_id):
+        """Track one frame, then drain the keyframe queues. The JAX System
+        calls ``_relocalize`` when the tracker is LOST; relocalization is
+        not ported (ROADMAP.md queue 1 item 13), so a LOST tracker stays
+        LOST here."""
         out = self.tracker.track_features(feats, frame_id)
         self._process_keyframes()
         return out
 
     def _process_keyframes(self):
-        """Drain the tracker's keyframe queues. Without a keyframe database
-        there are no rows to erase or add: culled slots become reusable at
-        once and new keyframes need no registration."""
+        """Drain the tracker's keyframe queues: erase culled keyframes from
+        the database, after which their slots are reusable; then register
+        each new keyframe (loop closing off) or run loop detection on it and
+        correct a verified loop. Without a database culled slots are
+        reusable at once and new keyframes need no registration."""
+        lcl = self.loop_closer
         if self.tracker.culled_kf_slots:
+            if lcl is not None:
+                for k in self.tracker.culled_kf_slots:
+                    lcl.db = kfdb_mod.erase_keyframe(lcl.db, k)
             self.tracker.culled_kf_slots.clear()
             self.shared.reclaim_slots()
-        self.tracker.new_kf_slots.clear()
+        while self.tracker.new_kf_slots:
+            kf_slot = self.tracker.new_kf_slots.pop(0)
+            if lcl is None:
+                continue
+            if not self.enable_loop_closing:
+                # registered all the same, for relocalization
+                st = self.shared.state
+                lcl.db, _, _ = kfdb_mod.add_keyframe(
+                    lcl.db, self.vocab, kf_slot, st.kf_desc[kf_slot],
+                    st.kf_feat_valid[kf_slot])
+                continue
+            match = lcl.process_keyframe(self.shared, kf_slot)
+            if match is not None:
+                lcl.correct_loop(self.shared, match, run_gba=self.run_gba)
 
     # -- export -------------------------------------------------------------
 

@@ -5,6 +5,8 @@ drop out-of-range indices (``.at[i].set(v, mode="drop")`` with a sentinel
 index one past the end), ``nonzero(size=, fill_value=)`` with a static output
 size, and ``top_k`` with a lowest-index tie-break. Each has one helper here,
 written so that it never synchronises the host with the device.
+``blockwise_jacfwd`` stands for ``vmap(jax.jacfwd(f))`` over independent
+rows.
 
 ``host_fetch`` is the one door through which the host reads device values on
 the tracking path; it counts its calls so a run can report how often the
@@ -16,6 +18,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.func import jvp, vmap
 
 
 @functools.lru_cache(maxsize=256)
@@ -53,10 +56,11 @@ def reset_host_fetch_count() -> None:
 # -- selection ---------------------------------------------------------------
 
 def top_k_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries of 1-D x, ties broken by
-    lowest index (the rule of jax.lax.top_k; torch.topk promises none)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """(values, indices) of the k largest entries along the last axis of x,
+    ties broken by lowest index (the rule of jax.lax.top_k; torch.topk
+    promises none)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def first_true_indices(mask: torch.Tensor, size: int, fill_value: int):
@@ -79,6 +83,24 @@ def fill_at(t: torch.Tensor, i: int, value) -> torch.Tensor:
     which makes the host wait for the stream)."""
     t.narrow(0, i, 1).fill_(value)
     return t
+
+
+# -- derivatives -------------------------------------------------------------
+
+def blockwise_jacfwd(fn, x: torch.Tensor) -> torch.Tensor:
+    """[E, m, n] Jacobians of fn: [E, n] -> [E, m] whose row e depends on
+    x[e] alone (a per-edge residual, a per-problem residual with E = 1):
+    one forward-mode product per input component, every row at once.
+
+    This is ``vmap(jacfwd(f))`` over the rows, written the other way round:
+    under that form each row's scalars are 0-d inside the transform, where
+    torch 2.13 promotes a 0-d dual tensor combined with a Python float to
+    float64."""
+    n = x.shape[-1]
+    basis = torch.eye(n, dtype=x.dtype, device=x.device)[:, None, :] \
+        .expand(n, x.shape[0], n)
+    tangents = vmap(lambda v: jvp(fn, (x,), (v,))[1])(basis)   # [n, E, m]
+    return tangents.permute(1, 2, 0)
 
 
 # -- scatters that drop a sentinel index --------------------------------------

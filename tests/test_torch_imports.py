@@ -1,5 +1,6 @@
-"""The port stands alone: no module of multiagent_orb_slam2_tpu_torch/ and
-not chip_smoke.py imports jax or anything of multiagent_orb_slam2_tpu."""
+"""The port stands alone: no module of multiagent_orb_slam2_tpu_torch/, not
+chip_smoke.py and not the fixtures it imports imports jax or anything of
+multiagent_orb_slam2_tpu."""
 import ast
 import pathlib
 import subprocess
@@ -26,7 +27,10 @@ def _imports(path):
 
 
 def test_no_jax_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # chip_smoke.py and the jax-free fixtures it imports on the card
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_loop_cases.py",
+        ROOT / "tests" / "torch_ba_cases.py"]
     assert len(files) > 15
     offenders = [(str(f.relative_to(ROOT)), name)
                  for f in files for name in _imports(f) if _bad(name)]

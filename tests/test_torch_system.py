@@ -15,6 +15,7 @@ from multiagent_orb_slam2_tpu_torch.io import trajectory as ttraj
 from multiagent_orb_slam2_tpu_torch.runtime import system as tsys
 from multiagent_orb_slam2_tpu_torch.runtime import tracker as ttr
 from multiagent_orb_slam2_tpu_torch.utils import torch_ops as ops
+from multiagent_orb_slam2_tpu_torch.vocab import bow as tbow
 
 from torch_parity import CFG, TCFG, sequence
 
@@ -46,13 +47,39 @@ def test_unported_paths_raise(what):
         assert "run_local_ba" not in inspect.signature(
             tsys.System.__init__).parameters
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    if what in ("loop_closing", "vocab"):
+        # ported: loop closing with global BA is the System default, as in
+        # the JAX package; a vocabulary fills the keyframe database
+        vocab = tbow.train_vocabulary(
+            np.random.default_rng(0).integers(0, 2**32, (500, 8),
+                                              dtype=np.uint32),
+            k=4, depth=2, device="cpu")
+        params = inspect.signature(tsys.System.__init__).parameters
+        assert params["enable_loop_closing"].default is True
+        assert params["run_gba"].default is True
         if what == "loop_closing":
-            tsys.System(TCFG, None, device="cpu")         # default is on
-        elif what == "vocab":
-            tsys.System(TCFG, object(), enable_loop_closing=False,
-                        device="cpu")
-        elif what == "localization":
+            system = tsys.System(TCFG, vocab, device="cpu")
+            assert system.enable_loop_closing and system.run_gba
+            assert system.loop_closer.vocab is vocab
+            with pytest.raises(ValueError, match="vocabulary"):
+                tsys.System(TCFG, None, device="cpu")
+            return
+        # loop closing off: new keyframes are registered all the same,
+        # culled ones erased before their slots are reused
+        system = tsys.System(TCFG, vocab, enable_loop_closing=False,
+                             device="cpu")
+        slot = system.shared.alloc_kf()
+        system.tracker.new_kf_slots.append(slot)
+        system._process_keyframes()
+        assert bool(system.loop_closer.db.active[slot])
+        system.shared.note_culled(slot, None, None, None)
+        system.tracker.culled_kf_slots.append(slot)
+        system._process_keyframes()
+        assert not bool(system.loop_closer.db.active[slot])
+        assert system.shared.free_kf == [slot]
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        if what == "localization":
             ttr.Tracker(TCFG, shared, run_local_ba=False,
                         device="cpu").set_localization_mode(True)
         elif what == "mono_sensor":
@@ -255,3 +282,4 @@ def test_tracker_with_local_ba_matches_jax():
         assert (fj, lj) == (ft, lt)
         np.testing.assert_allclose(qt, qj, atol=1e-3)
         np.testing.assert_allclose(tt_, tj_, atol=1e-3)
+
