@@ -15,18 +15,28 @@ off. Then loop closing: ``System(CFG, vocab)`` with the committed vocabulary
 over 100 frames of the same corridor (keyframe database, loop detection,
 local and global BA, as a user builds the System); a loop detected and
 corrected with global BA on a drifted 110-keyframe ring at (K, P, M) =
-(128, 32768, 24); global BA at the benchmark's size (256, 65536, 8). The
-Schur preparation (K2) and PCG (K3) are held against their plain versions on
-both global BAs' own problems. It fails (exit code other than 0) when there
-is no CUDA device, when a kernel does not build, launch or agree, when a
-path never launched its kernels, or when a trajectory, the keyframe database
-or a loop correction is wrong. Needs no network and no other process.
+(128, 32768, 24); global BA at the benchmark's size (256, 65536, 8). Then
+trial 0 of the accuracy protocol: the 660-frame loop corridor of
+``analysis/make_synth_seq`` (seed 0, 512x288, rendered by a pool of
+processes) through the single-agent driver ``drivers/run_single`` at the
+default capacities (512 keyframes, 65536 points, 24 observations a point),
+evaluated by ``analysis/genstats``; on the map it leaves, a kidnap (two
+black frames, then relocalization at an earlier pose) and a checkpoint
+round trip. The Schur preparation (K2) and PCG (K3) are held against their
+plain versions on both global BAs' own problems and on the corridor's last
+local BA. It fails (exit code other than 0) when there is no CUDA device,
+when a kernel does not build, launch or agree, when a path never launched
+its kernels, or when a trajectory, the keyframe database, a loop
+correction, a relocalization or a checkpoint is wrong. Needs no network;
+the processes it starts to render the corridor end with it.
 
 Output, in order: the card's name and power limit, build seconds and ptxas
 lines, one line per kernel with the comparison at every shape, each path's
 numbers, the ring's and the benchmark-size global BA's numbers with their
-K2 / K3 checks, one JSON object ``{"kernels": [...]}``, the card line again,
-and as the last line ``{"ok": true, "device": {...}}``.
+K2 / K3 checks, the corridor's (``corridor:``), the kidnap's and the
+checkpoint's lines and the K2 / K3 checks on the corridor's local BA, one
+JSON object ``{"kernels": [...]}``, the card line again, and as the last
+line ``{"ok": true, "device": {...}}``.
 
 Times: ``ms`` / ``kernel_ms`` of every kernel is the kernel alone (raw
 launches queued back to back between two CUDA events; for the Schur
@@ -41,11 +51,13 @@ turns with the present one in this process on this card. After the BA path
 the Schur preparation is timed again, alone, on the workspaces that path's
 local bundle adjustments built (``ba_prep, real maps``).
 """
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -58,6 +70,8 @@ from multiagent_orb_slam2_tpu_torch.config import (Capacities, LoopConfig,
                                                    Sensor, SlamConfig,
                                                    TrackingConfig)
 from multiagent_orb_slam2_tpu_torch import convert
+from multiagent_orb_slam2_tpu_torch.analysis import genstats, make_synth_seq
+from multiagent_orb_slam2_tpu_torch.drivers import run_single
 from multiagent_orb_slam2_tpu_torch.geometry import se3
 from multiagent_orb_slam2_tpu_torch.geometry.camera import Intrinsics
 from multiagent_orb_slam2_tpu_torch.io import ba_problem, synthetic
@@ -66,9 +80,12 @@ from multiagent_orb_slam2_tpu_torch.optim import ba as ba_mod
 from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, ba_prep, pcg
 from multiagent_orb_slam2_tpu_torch.optim import pose_opt
 from multiagent_orb_slam2_tpu_torch.runtime import loop_closing as lc_mod
+from multiagent_orb_slam2_tpu_torch.runtime import reloc as reloc_mod
 from multiagent_orb_slam2_tpu_torch.runtime import steps as steps_mod
 from multiagent_orb_slam2_tpu_torch.runtime import system as system_mod
-from multiagent_orb_slam2_tpu_torch.runtime.tracker import _np_inverse
+from multiagent_orb_slam2_tpu_torch.runtime import tracker as tracker_mod
+from multiagent_orb_slam2_tpu_torch.runtime.tracker import (TrackerState,
+                                                            _np_inverse)
 from multiagent_orb_slam2_tpu_torch.utils import cuda_build, torch_ops
 from multiagent_orb_slam2_tpu_torch.vocab import bow as bow_mod
 
@@ -83,6 +100,15 @@ N_FRAMES_LOOP = 100    # the loop path: more than refractory_kfs keyframes
 # the ring of the loop-closing phase, as tests/test_loop_closing.py's front
 # door test has it: 110 keyframes, the last 5 revisiting the first places
 RING_KF, RING_REV, RING_DRIFT = 110, 5, 0.01
+# trial 0 of the accuracy protocol (analysis/collect_synthetic.py): the
+# 660-frame loop corridor of make_synth_seq, seed 0, at the default
+# capacities; the JAX package's single-agent ATE there
+# (analysis/stats_synthetic.txt, trial0) and the gate PERF.md sets for it
+CORRIDOR_FRAMES, CORRIDOR_SEED = 660, 0
+JAX_ATE_TRIAL0_M = 0.057
+CORRIDOR_ATE_GATE_M = 0.15
+CORRIDOR_EXPORTED_GATE = 0.9
+KIDNAP_FRAME = 40      # the kidnapped camera reappears at this frame's pose
 # g2o's global BA time on KITTI 00 (BASELINE.md, split-sequence table): the
 # reference's, taken on a CPU; an outside yardstick, no gate
 G2O_GBA_MS_KITTI00 = 1426.5
@@ -273,9 +299,10 @@ def pose_optimize_v1(q0, t0, obs, cam, cfg):
 
 def check_pose_kernel():
     """K1 against its plain version (1e-5 in q and t, inlier labels equal on
-    99 %, counts within 2) at the shapes the path gives it and in three mask
-    regimes at N = 2048: 90 % of the slots valid, 20 % (the path's regime),
-    all; two launches bit-identical; the first design timed beside it
+    99 %, counts within 2) at the shapes the paths give it (N = 2048 on the
+    KITTI-shaped paths, 1024 on the loop corridor's, in tracking and in
+    relocalization) and in three mask regimes at N = 2048: 90 % of the
+    slots valid, 20 % (the path's regime), all; two launches bit-identical; the first design timed beside it
     (kernel_ms / ms_v1: the kernels alone; wrapper_ms / wrapper_ms_v1: one
     call of the Python wrapper, as earlier records timed it). With no valid
     observation it returns the initial pose and 0
@@ -283,7 +310,7 @@ def check_pose_kernel():
     cfg = OptimizerConfig()
     rows = []
     for B, N, valid in ((1, 2048, 0.9), (4, 2048, 0.9), (1, 512, 0.9),
-                        (1, 2048, 0.2), (1, 2048, 1.0)):
+                        (1, 2048, 0.2), (1, 2048, 1.0), (1, 1024, 0.4)):
         q0, t0, obs = pose_problem(B, N, seed=1000 * B + N, valid=valid)
         k = pose_opt.pose_optimize(q0, t0, obs, CAM, cfg)
         torch.cuda.synchronize()
@@ -802,13 +829,15 @@ def check_solver_determinism():
 # ---------------------------------------------------------------------------
 
 def render_corridor(n_frames):
-    scene = synthetic.BoxScene(seed=0, z_far=60.0)
+    """The KITTI-shaped corridor's first n_frames stereo pairs (float32),
+    rendered by a pool of processes, and their true positions."""
     q_gt, t_gt = synthetic.corridor_trajectory(n_frames, step=0.25)
+    workers = len(os.sched_getaffinity(0))
     t0 = time.perf_counter()
-    frames = [scene.render_stereo(CAM, q_gt[i], t_gt[i])[:2]
-              for i in range(n_frames)]
+    frames = list(make_synth_seq.render_stereo_frames(
+        0, CAM, q_gt, t_gt, z_far=60.0, workers=workers))
     print(f"rendered {n_frames} stereo frames {CAM.width}x{CAM.height} on the "
-          f"host in {time.perf_counter() - t0:.1f} s")
+          f"host in {time.perf_counter() - t0:.1f} s with {workers} processes")
     return frames, t_gt
 
 
@@ -1505,6 +1534,360 @@ def prep_real_maps(solves, n_iters=(5, 10)):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the 660-frame loop corridor through the single-agent driver
+# ---------------------------------------------------------------------------
+
+def _sync_warnings(caught):
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def drive_corridor(work):
+    """Trial 0 of the accuracy protocol: make_synth_seq seed 0, 660 frames,
+    rendered by a pool of processes (timed apart), then the single-agent
+    driver run_single on the card with the committed vocabulary and the
+    settings' default capacities (512 keyframes, 65536 points, 24
+    observations, 1024 feature slots, 8192 local points), then genstats.
+    Every frame is timed (synchronize at its end) and its host waits counted
+    (set_sync_debug_mode), and so are each keyframe, local BA, global BA
+    and relocalization. Gate (PERF.md): ATE mean < CORRIDOR_ATE_GATE_M and
+    at least CORRIDOR_EXPORTED_GATE of the frames exported; the path
+    launched K1 twice a tracked frame and K2 / K3 19 / 15 times a local BA.
+    Returns (System, report, launches, the first solve of the last local BA,
+    the sequence directory)."""
+    seq_dir = os.path.join(work, "seq0")
+    out_dir = os.path.join(work, "out0")
+    workers = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    make_synth_seq.main(["-o", seq_dir, "--seed", str(CORRIDOR_SEED),
+                         "--frames", str(CORRIDOR_FRAMES),
+                         "--workers", str(workers)])
+    render_s = time.perf_counter() - t0
+    print(f"corridor: rendered {CORRIDOR_FRAMES} stereo frames 512x288 on "
+          f"the host in {render_s:.1f} s with {workers} processes")
+
+    frames, cur = [], {"caught": [], "kf": False, "reloc": False,
+                       "lba_first": False}
+    ms = {k: [] for k in ("keyframe", "local_ba", "gba", "reloc")}
+    reloc_rows, gba_launches, kept = [], [], {}
+    loops = {"detected": 0, "sim3_attempts": 0}
+    patched = []
+
+    def patch(owner, name, make):
+        real = getattr(owner, name)
+        patched.append((owner, name, real))
+        setattr(owner, name, make(real))
+
+    def timing(key, flag=None):
+        def make(real):
+            def wrapper(*a, **kw):
+                if flag:
+                    cur[flag] = True
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                ms[key].append((time.perf_counter() - t) * 1e3)
+                return out
+            return wrapper
+        return make
+
+    def track_stereo(real):
+        def wrapper(self, left, right, frame_id=None):
+            cur["kf"] = cur["reloc"] = False
+            before = torch_ops.host_fetch_count()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                cur["caught"] = caught
+                t = time.perf_counter()
+                out = real(self, left, right, frame_id)
+                torch.cuda.synchronize()
+                frame_ms = (time.perf_counter() - t) * 1e3
+            frames.append({"ms": frame_ms, "syncs": _sync_warnings(caught),
+                           "fetches": torch_ops.host_fetch_count() - before,
+                           "kf": cur["kf"], "reloc": cur["reloc"],
+                           "ok": self.tracker.state == TrackerState.OK})
+            return out
+        return wrapper
+
+    def local_ba(real):
+        inner = timing("local_ba")(real)
+
+        def wrapper(*a, **kw):
+            cur["lba_first"] = True
+            return inner(*a, **kw)
+        return wrapper
+
+    def solve(real):
+        def wrapper(prob, *a, **kw):
+            if cur["lba_first"]:
+                kept["lba_prob"] = prob
+                cur["lba_first"] = False
+            return real(prob, *a, **kw)
+        return wrapper
+
+    def gba(real):
+        inner = timing("gba")(real)
+
+        def wrapper(*a, **kw):
+            l0 = (ba_prep.prep_terms.launches, pcg.pcg_solve.launches)
+            out = inner(*a, **kw)
+            gba_launches.append({
+                "ba_prep": ba_prep.prep_terms.launches - l0[0],
+                "pcg": pcg.pcg_solve.launches - l0[1]})
+            return out
+        return wrapper
+
+    def relocalize(real):
+        def wrapper(*a, **kw):
+            cur["reloc"] = True
+            k1, s0 = pose_opt.pose_optimize.launches, len(cur["caught"])
+            f0 = torch_ops.host_fetch_count()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = real(*a, **kw)
+            torch.cuda.synchronize()
+            ms["reloc"].append((time.perf_counter() - t) * 1e3)
+            reloc_rows.append({
+                "ok": bool(ok), "k1": pose_opt.pose_optimize.launches - k1,
+                "syncs": _sync_warnings(cur["caught"][s0:]),
+                "fetches": torch_ops.host_fetch_count() - f0})
+            return ok
+        return wrapper
+
+    def process_keyframe(real):
+        def wrapper(*a, **kw):
+            m = real(*a, **kw)
+            loops["detected"] += m is not None
+            return m
+        return wrapper
+
+    def compute_sim3(real):
+        def wrapper(*a, **kw):
+            loops["sim3_attempts"] += 1
+            return real(*a, **kw)
+        return wrapper
+
+    patch(system_mod.System, "track_stereo", track_stereo)
+    patch(tracker_mod.Tracker, "_create_keyframe", timing("keyframe", "kf"))
+    patch(steps_mod, "local_ba_step", local_ba)
+    patch(ba_mod, "ba_solve_fast", solve)
+    patch(lc_mod, "global_bundle_adjustment", gba)
+    patch(reloc_mod, "relocalize", relocalize)
+    patch(lc_mod.LoopCloser, "process_keyframe", process_keyframe)
+    patch(lc_mod.LoopCloser, "compute_sim3", compute_sim3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        system, summary = run_single.run(
+            ["-t", "stereo_synth", "-d", seq_dir,
+             "-s", os.path.join(seq_dir, "settings.json"), "-o", out_dir,
+             "--device", "cuda"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for owner, name, real in reversed(patched):
+            setattr(owner, name, real)
+    run_s = time.perf_counter() - t0
+    launches = {"pose_opt": pose_opt.pose_optimize.launches,
+                "ba_prep": ba_prep.prep_terms.launches,
+                "ba_prep_compact": ba_prep.compact_points.launches,
+                "pcg": pcg.pcg_solve.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    ev = genstats.evaluate(os.path.join(seq_dir, "gt_tum.txt"),
+                           os.path.join(out_dir, "CameraTrajectory.txt"))
+
+    def median(values):
+        values = list(values)
+        return statistics.median(values) if values else None
+
+    tracked = [f for f in frames[1:] if f["ok"] and not f["kf"]
+               and not f["reloc"]]
+    kf_frames = [f for f in frames[1:] if f["kf"]]
+    n_lba = len(ms["local_ba"])
+    cfg = system.cfg
+    report = {
+        "frames": CORRIDOR_FRAMES, "render_s": render_s,
+        "render_processes": workers, "run_s": run_s,
+        "caps": dataclasses.asdict(cfg.caps),
+        "ate_mean_m": ev["ate"] if ev else None,
+        "ate_rmse_m": ev["ate_rmse"] if ev else None,
+        "jax_ate_mean_m": JAX_ATE_TRIAL0_M,
+        "rpe_t_m_per_frame": ev["rpe_t"] if ev else None,
+        "rpe_t_m_per_m": ev["rpe_t_per_m"] if ev else None,
+        "rpe_r_deg": ev["rpe_r"] if ev else None,
+        "scale": ev["scale"] if ev else None,
+        "frames_exported": ev["n"] if ev else 0,
+        "frames_lost": summary["lost"],
+        "relocalizations": summary["relocalizations"],
+        "relocalization_attempts": len(reloc_rows),
+        "loops_detected": loops["detected"],
+        "loops_corrected": summary["loops_corrected"],
+        "sim3_attempts": loops["sim3_attempts"],
+        "keyframes_created": summary["keyframes_created"],
+        "keyframes_live": summary["keyframes_live"],
+        "slot_recycling":
+            summary["keyframes_created"] > cfg.caps.max_keyframes,
+        "keyframe_slots_high_water": system.shared.n_kf,
+        "point_compactions": system.shared.n_compactions,
+        "point_stalls": system.shared.n_point_stalls,
+        "tracked_frame_ms_median": median(f["ms"] for f in tracked),
+        "keyframe_frame_ms_median": median(f["ms"] for f in kf_frames),
+        "keyframe_ms_median": median(ms["keyframe"]),
+        "local_ba_ms_median": median(ms["local_ba"]),
+        "local_ba_ms_max": max(ms["local_ba"], default=None),
+        "local_bas": n_lba,
+        "gba_ms": ms["gba"], "gba_launches": gba_launches,
+        "reloc_ms": ms["reloc"],
+        "syncs_per_tracked_frame_median": median(f["syncs"] for f in tracked),
+        "syncs_per_keyframe_frame_median": median(f["syncs"]
+                                                  for f in kf_frames),
+        "syncs_per_relocalization_median": median(r["syncs"]
+                                                  for r in reloc_rows),
+        "fetches_per_tracked_frame_median": median(f["fetches"]
+                                                   for f in tracked),
+        "fetches_per_relocalization_median": median(r["fetches"]
+                                                    for r in reloc_rows),
+        "max_memory_allocated_mb": peak_mb,
+        "launches": launches,
+        "pose_opt_launches_in_relocalization": sum(r["k1"]
+                                                   for r in reloc_rows),
+    }
+    print("corridor: " + json.dumps(report))
+    if ev:
+        print(f"corridor: ATE mean {ev['ate']:.4f} m, RMSE "
+              f"{ev['ate_rmse']:.4f} m (the JAX package's trial 0: "
+              f"{JAX_ATE_TRIAL0_M} m); RPE-t {ev['rpe_t']:.4f} m a frame, "
+              f"{ev['rpe_t_per_m']:.4f} m a metre; {ev['n']} of "
+              f"{CORRIDOR_FRAMES} frames exported, {summary['lost']} lost, "
+              f"{summary['relocalizations']} relocalizations, "
+              f"{loops['detected']} loops detected, "
+              f"{summary['loops_corrected']} corrected; keyframes "
+              f"{summary['keyframes_created']} created, "
+              f"{summary['keyframes_live']} live")
+    print(f"corridor: medians, ms: tracked frame "
+          f"{report['tracked_frame_ms_median']}, keyframe "
+          f"{report['keyframe_ms_median']}, local BA "
+          f"{report['local_ba_ms_median']} ({n_lba}), global BA "
+          f"{ms['gba']}; waits: tracked frame "
+          f"{report['syncs_per_tracked_frame_median']}, keyframe frame "
+          f"{report['syncs_per_keyframe_frame_median']}, relocalization "
+          f"{report['syncs_per_relocalization_median']}; peak device memory "
+          f"{peak_mb:.1f} MB; launches K1 / K2 / K3 {launches['pose_opt']} / "
+          f"{launches['ba_prep']} / {launches['pcg']} (K1 in "
+          f"relocalization: {report['pose_opt_launches_in_relocalization']})")
+    problems = []
+    if ev is None or not np.isfinite(ev["ate"]) \
+            or not ev["ate"] < CORRIDOR_ATE_GATE_M:
+        problems.append(f"ATE {ev and ev['ate']} m (need < "
+                        f"{CORRIDOR_ATE_GATE_M})")
+    if report["frames_exported"] < CORRIDOR_EXPORTED_GATE * CORRIDOR_FRAMES:
+        problems.append(f"{report['frames_exported']} frames exported (need "
+                        f">= {CORRIDOR_EXPORTED_GATE:.0%} of "
+                        f"{CORRIDOR_FRAMES})")
+    if launches["pose_opt"] < 2 * len(tracked):
+        problems.append(f"pose_opt launched {launches['pose_opt']} times for "
+                        f"{len(tracked)} tracked frames (need 2 each)")
+    if n_lba < 5 or launches["ba_prep"] < 19 * n_lba \
+            or launches["pcg"] < 15 * n_lba:
+        problems.append(f"K2 / K3 launched {launches['ba_prep']} / "
+                        f"{launches['pcg']} times in {n_lba} local BAs (need "
+                        "19 / 15 each, and 5 local BAs)")
+    if any(g["ba_prep"] < 10 or g["pcg"] < 10 for g in gba_launches):
+        problems.append(f"a global BA launched K2 / K3 {gba_launches}")
+    if problems:
+        raise SystemExit("corridor failed: " + "; ".join(problems))
+    return system, report, launches, kept["lba_prob"], seq_dir
+
+
+def kidnap(system):
+    """The map trial 0 left: two black frames (the tracker gets LOST), then
+    a frame rendered at the corridor's pose KIDNAP_FRAME. The tracker must be
+    OK again, n_relocalizations up by one, and the camera centre within
+    0.1 m of the true one (in the map's frame, which is the first camera's).
+    The frame that relocalizes is timed, its waits and K1 launches counted.
+    Returns (report, K1 launches in the relocalization)."""
+    q_wc, t_wc = make_synth_seq.loop_trajectory(CORRIDOR_FRAMES, 1.0, 24.0,
+                                                seed=CORRIDOR_SEED)
+    cam = make_synth_seq.camera()
+    left, right, _ = synthetic.BoxScene(seed=CORRIDOR_SEED,
+                                        z_far=30.0).render_stereo(
+        cam, q_wc[KIDNAP_FRAME], t_wc[KIDNAP_FRAME])
+    black = np.zeros((cam.height, cam.width), np.float32)
+    tracker = system.tracker
+    n0 = system.n_relocalizations
+    states = []
+    for j in range(2):
+        system.track_stereo(black, black, frame_id=CORRIDOR_FRAMES + j)
+        states.append(tracker.state)
+    k1 = pose_opt.pose_optimize.launches
+    fetches = torch_ops.host_fetch_count()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t = time.perf_counter()
+            system.track_stereo(left, right, frame_id=CORRIDOR_FRAMES + 2)
+            torch.cuda.synchronize()
+            frame_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    k1 = pose_opt.pose_optimize.launches - k1
+    # the true centre in the map's frame (the first camera's)
+    R0 = synthetic._quat_to_matrix(q_wc[0]).astype(np.float64)
+    want = R0.T @ (t_wc[KIDNAP_FRAME] - t_wc[0])
+    got = _np_inverse(tracker.last_q.cpu().numpy().astype(np.float64),
+                      tracker.last_t.cpu().numpy().astype(np.float64))[1]
+    err = float(np.linalg.norm(got - want))
+    report = {"frame": KIDNAP_FRAME, "states_after_black": states,
+              "state": tracker.state,
+              "relocalizations": system.n_relocalizations - n0,
+              "ref_kf": tracker.ref_kf, "centre_err_m": err,
+              "frame_ms": frame_ms, "pose_opt_launches": k1,
+              "frame_syncs": _sync_warnings(caught),
+              "frame_host_fetches": torch_ops.host_fetch_count() - fetches,
+              "inliers": int((tracker.last_frame_mp >= 0).sum())}
+    print("kidnap: " + json.dumps(report))
+    if states != [TrackerState.LOST] * 2 or tracker.state != TrackerState.OK \
+            or report["relocalizations"] != 1 or not err < 0.1:
+        raise SystemExit(f"kidnap failed: {report} (need LOST, LOST, then "
+                         "OK by one relocalization within 0.1 m)")
+    return report, k1
+
+
+def checkpoint(system, work):
+    """save_map of the map, load_map into a fresh System: every MapState
+    field bit-equal, and n_kf, n_mp and n_created equal."""
+    path = os.path.join(work, "map.npz")
+    t = time.perf_counter()
+    system.save_map(path)
+    save_s = time.perf_counter() - t
+    fresh = system_mod.System(system.cfg, system.vocab, device=system.device)
+    t = time.perf_counter()
+    fresh.load_map(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    a, b = system.shared, fresh.shared
+    differ = [k for k, v in a.state._asdict().items()
+              if not torch.equal(getattr(b.state, k), v)]
+    report = {"fields": len(a.state), "fields_differ": differ,
+              "n_kf": [a.n_kf, b.n_kf], "n_mp": [a.n_mp, b.n_mp],
+              "n_created": [a.n_created, b.n_created],
+              "file_mb": os.path.getsize(path) / 2 ** 20,
+              "save_s": save_s, "load_s": load_s,
+              "database_rows": int(fresh.loop_closer.db.active.sum())}
+    print("checkpoint: " + json.dumps(report))
+    if differ or (a.n_kf, a.n_mp, a.n_created) != (b.n_kf, b.n_mp,
+                                                   b.n_created) \
+            or report["database_rows"] != len(a.uid_slot):
+        raise SystemExit(f"checkpoint failed: {report}")
+    return report
+
+
 def gba_keys(row, suffix):
     """A K2 or K3 row measured on a global BA's problem, as keys of the
     kernel's entry in the {"kernels": ...} line."""
@@ -1588,10 +1971,28 @@ def main():
     bench_k2, bench_k3 = check_gba_kernels("bench GBA", bench_prob,
                                            bench_cam, 8192)
     del bench_prob
+    torch.cuda.empty_cache()
 
-    # 6. the record: each kernel at the shape its main path gives it, its
+    # 6. the 660-frame loop corridor (trial 0) through the single-agent
+    # driver at the default capacities; the kidnap and the checkpoint on the
+    # map it left; K2 and K3 against their plain versions on the first build
+    # of its last local BA, at (512, 65536, 24) and D = 3072
+    with tempfile.TemporaryDirectory() as work:
+        system, corridor, corridor_launches, lba_prob, _ = \
+            drive_corridor(work)
+        kidnap_report, kidnap_k1 = kidnap(system)
+        checkpoint(system, work)
+    lba_cam = system.cfg.camera
+    del system
+    torch.cuda.empty_cache()
+    lba_k2, lba_k3 = check_gba_kernels(
+        "corridor local BA", lba_prob, lba_cam,
+        steps_mod._ba_chunk(lba_prob.pw.shape[0]))
+    del lba_prob
+
+    # 7. the record: each kernel at the shape its main path gives it, its
     # launches read right after each path; K2 and K3 also at the two global
-    # BAs' shapes
+    # BAs' shapes and the corridor's local BA
     k2 = k2_rows[0]                                   # K=64 P=32768 M=24
     k3 = next(r for r in k3_rows if r["D"] == 384 and r["warm_start"])
     kernels = [{
@@ -1601,6 +2002,9 @@ def main():
         "launches": ba_launches["pose_opt"],
         "launches_no_ba_path": no_ba_launches["pose_opt"],
         "launches_loop_path": loop_launches["pose_opt"],
+        "launches_corridor": corridor_launches["pose_opt"],
+        "launches_reloc": corridor["pose_opt_launches_in_relocalization"],
+        "launches_kidnap_reloc": kidnap_k1,
         "max_abs_err": k1["max_err"],
         "ms": k1["kernel_ms"], "ms_v1": k1["ms_v1"],
         "wrapper_ms": k1["wrapper_ms"], "wrapper_ms_v1": k1["wrapper_ms_v1"],
@@ -1632,7 +2036,9 @@ def main():
         "launches_loop_path": loop_launches["ba_prep"],
         "launches_ring_gba": ring_launches["ba_prep"],
         "launches_bench_gba": bench_launches["ba_prep"],
+        "launches_corridor": corridor_launches["ba_prep"],
         **gba_keys(ring_k2, "ring_gba"), **gba_keys(bench_k2, "bench_gba"),
+        **gba_keys(lba_k2, "corridor_lba"),
     }, {
         "name": "pcg", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/pcg.cu",
@@ -1652,7 +2058,9 @@ def main():
         "launches_loop_path": loop_launches["pcg"],
         "launches_ring_gba": ring_launches["pcg"],
         "launches_bench_gba": bench_launches["pcg"],
+        "launches_corridor": corridor_launches["pcg"],
         **gba_keys(ring_k3, "ring_gba"), **gba_keys(bench_k3, "bench_gba"),
+        **gba_keys(lba_k3, "corridor_lba"),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -46,7 +46,8 @@ def to_numpy(t, unsigned: bool = False) -> np.ndarray:
     return a.view(np.uint32) if unsigned else a
 
 
-_DESC_FIELDS = {"kf_desc", "mp_desc", "desc"}
+# uint32 descriptor words in the JAX package
+DESC_FIELDS = {"kf_desc", "mp_desc", "desc"}
 
 
 def _from_numpy(cls, fields: dict, device):
@@ -55,7 +56,7 @@ def _from_numpy(cls, fields: dict, device):
 
 
 def _to_numpy(obj) -> dict:
-    return {f: (None if v is None else to_numpy(v, f in _DESC_FIELDS))
+    return {f: (None if v is None else to_numpy(v, f in DESC_FIELDS))
             for f, v in zip(obj._fields, obj)}
 
 

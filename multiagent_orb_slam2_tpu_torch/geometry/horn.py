@@ -114,18 +114,18 @@ class Sim3RansacResult(NamedTuple):
     n_inliers: torch.Tensor   # 0-d int64
 
 
-def draw_samples(mask, n_iters: int, seed: int):
-    """[n_iters, 3] indices of distinct correspondences, each triple drawn
+def draw_samples(mask, n_iters: int, seed: int, size: int = 3):
+    """[n_iters, size] indices of distinct correspondences, each row drawn
     uniformly among those with `mask` set (the JAX package draws with
-    probabilities mask / sum(mask), without replacement): the three largest
-    of one uniform number per correspondence, from a generator on the
-    mask's device seeded with `seed`."""
+    probabilities mask / sum(mask), without replacement): the `size`
+    largest of one uniform number per correspondence, from a generator on
+    the mask's device seeded with `seed`."""
     gen = torch.Generator(device=mask.device)
     gen.manual_seed(int(seed))
     u = torch.rand((n_iters, mask.shape[0]), generator=gen,
                    device=mask.device)
     keys = torch.where(mask[None, :], u, torch.full_like(u, -1.0))
-    return torch.topk(keys, 3, dim=-1).indices
+    return torch.topk(keys, size, dim=-1).indices
 
 
 def _project(cam: Intrinsics, p):

@@ -103,19 +103,25 @@ def ate(est_t, gt_t, with_scale: bool = True):
 def rpe(est_T, gt_T, delta: int = 1):
     """Relative pose error at frame offset delta.
 
-    est_T/gt_T: [N, 4, 4] camera-to-world. Returns translation (m) and
-    rotation (deg) means — the reference tables' RPE-t / RPE-r columns.
+    est_T/gt_T: [N, 4, 4] camera-to-world. Returns the translation (m) and
+    rotation (deg) means per frame pair, the reference tables' RPE-t / RPE-r
+    columns, and the translation error per metre of ground-truth travel
+    (summed errors over summed step lengths: the in-place turns of the loop
+    corridor have steps of millimetres, so a per-pair ratio would be
+    meaningless there).
     """
-    dts, drs = [], []
+    dts, drs, steps = [], [], []
     for i in range(len(est_T) - delta):
         de = np.linalg.inv(est_T[i]) @ est_T[i + delta]
         dg = np.linalg.inv(gt_T[i]) @ gt_T[i + delta]
         e = np.linalg.inv(dg) @ de
         dts.append(np.linalg.norm(e[:3, 3]))
+        steps.append(np.linalg.norm(dg[:3, 3]))
         c = np.clip((np.trace(e[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
         drs.append(np.degrees(np.arccos(c)))
     return {"trans_mean": float(np.mean(dts)),
-            "rot_mean_deg": float(np.mean(drs))}
+            "rot_mean_deg": float(np.mean(drs)),
+            "trans_per_m": float(np.sum(dts) / max(np.sum(steps), 1e-12))}
 
 
 def poses_to_matrices(qs, ts):

@@ -153,7 +153,7 @@ def extract_frame(img, cfg: SlamConfig, right_img=None, depth_map=None,
     if depth_map is not None:
         raise NotImplementedError(
             "RGB-D frames (compute_stereo_from_rgbd) are not ported yet: "
-            "ROADMAP.md queue 1 item 13, 'Mono, RGB-D and relocalization'")
+            "ROADMAP.md queue 1 item 13, 'Mono, RGB-D and localization-only'")
     img = _as_image(img, device)
     kp = orb.pad_keypoints(orb.extract(img, cfg.orb), cfg.caps.max_features)
     feats = from_keypoints(kp, cfg)

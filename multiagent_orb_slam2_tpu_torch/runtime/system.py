@@ -1,13 +1,13 @@
-"""Per-agent System facade: tracking + loop closing + trajectory export.
+"""Per-agent System facade: tracking + loop closing + relocalization +
+trajectory export + checkpointing.
 
 Counterpart of the JAX package's ``runtime/system.py`` (reference System).
 Ported: stereo tracking with local bundle adjustment and keyframe culling,
 loop closing with its keyframe database and global bundle adjustment (on by
-default, as in the JAX package), and the trajectory writers.
-Relocalization, RGB-D and monocular entry points and map checkpoints raise
-NotImplementedError naming their ROADMAP.md item. A tracker that gets LOST
-stays LOST (it dead-reckons on the motion model): the JAX ``System._track``
-calls ``_relocalize`` there, which is not ported.
+default, as in the JAX package), relocalization of a LOST tracker through
+that database (``runtime/reloc.py``), the trajectory writers and map
+checkpoints in the JAX package's file layout. RGB-D and monocular entry
+points raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -18,11 +18,14 @@ import torch
 
 from ..config import SlamConfig
 from ..io import trajectory as traj_mod
+from ..mapstate import checkpoint as ckpt
 from ..ops import frame as frame_mod
 from ..vocab import bow as bow_mod
 from ..vocab import kfdb as kfdb_mod
 from . import loop_closing as lc
-from .tracker import (SharedMap, Tracker, _np_inverse, _np_normalize)
+from . import reloc as reloc_mod
+from .tracker import (SharedMap, Tracker, TrackerState, _np_inverse,
+                      _np_normalize)
 
 
 def _not_ported(what: str, item: str):
@@ -36,10 +39,12 @@ class System:
     With a vocabulary (``vocab.bow.load_vocabulary()`` reads the committed
     asset), every keyframe is registered in the keyframe database and, with
     loop closing on (the default), queried for loops; a verified loop is
-    corrected and followed by a global BA (``run_gba``). Without one
-    (``System(cfg, None, enable_loop_closing=False)``) there is no keyframe
-    database: nothing is registered and culled slots are reusable at once.
-    Loop closing without a vocabulary raises ValueError.
+    corrected and followed by a global BA (``run_gba``); a LOST tracker is
+    relocalized against the database on every frame until it recovers.
+    Without one (``System(cfg, None, enable_loop_closing=False)``) there is
+    no keyframe database: nothing is registered, culled slots are reusable
+    at once, and a tracker that gets LOST stays LOST (it dead-reckons on the
+    motion model). Loop closing without a vocabulary raises ValueError.
     """
 
     def __init__(self, cfg: SlamConfig, vocab: Optional[bow_mod.Vocabulary],
@@ -71,11 +76,11 @@ class System:
 
     def track_rgbd(self, img, depth, frame_id=None):
         raise _not_ported("System.track_rgbd",
-                          "13, 'Mono, RGB-D and relocalization'")
+                          "13, 'Mono, RGB-D and localization-only'")
 
     def track_mono(self, img, frame_id=None):
         raise _not_ported("System.track_mono",
-                          "13, 'Mono, RGB-D and relocalization'")
+                          "13, 'Mono, RGB-D and localization-only'")
 
     def activate_localization_mode(self):
         self.tracker.set_localization_mode(True)
@@ -84,11 +89,11 @@ class System:
         self.tracker.set_localization_mode(False)
 
     def _track(self, feats, frame_id):
-        """Track one frame, then drain the keyframe queues. The JAX System
-        calls ``_relocalize`` when the tracker is LOST; relocalization is
-        not ported (ROADMAP.md queue 1 item 13), so a LOST tracker stays
-        LOST here."""
+        """Track one frame, relocalize if the tracker is LOST (with a
+        keyframe database), then drain the keyframe queues."""
         out = self.tracker.track_features(feats, frame_id)
+        if self.tracker.state == TrackerState.LOST and self._relocalize(feats):
+            out = (self.tracker.last_q, self.tracker.last_t)
         self._process_keyframes()
         return out
 
@@ -120,7 +125,18 @@ class System:
             if match is not None:
                 lcl.correct_loop(self.shared, match, run_gba=self.run_gba)
 
-    # -- export -------------------------------------------------------------
+    # -- relocalization (Tracking::Relocalization) -------------------------
+
+    def _relocalize(self, feats) -> bool:
+        if self.loop_closer is None:
+            return False
+        ok = reloc_mod.relocalize(self.tracker, self.loop_closer.db,
+                                  self.vocab, feats, self.cfg)
+        if ok:
+            self.n_relocalizations += 1
+        return ok
+
+    # -- export / checkpoint -------------------------------------------------
 
     def save_trajectory_tum(self, path, timestamps=None):
         traj_mod.write_tum(path, self.tracker.trajectory_tum(timestamps))
@@ -151,12 +167,43 @@ class System:
         traj_mod.write_tum(path, rows)
 
     def save_map(self, path):
-        raise _not_ported("System.save_map",
-                          "15, 'Tail' (mapstate/checkpoint.py)")
+        """The map and the host's slot counters in the JAX package's npz
+        layout. n_created persists, so a restored session never reissues
+        the uid of a keyframe culled before the save."""
+        ckpt.save_map(path, self.shared.state, self.shared.n_kf,
+                      self.shared.n_mp,
+                      extra={"n_created": self.shared.n_created})
 
     def load_map(self, path):
-        raise _not_ported("System.load_map",
-                          "15, 'Tail' (mapstate/checkpoint.py)")
+        """Restore a map saved by either package. The slot tables are
+        rebuilt from the persisted kf_seq column, the cull chains of the old
+        session are dropped, and every restored keyframe is registered in
+        the keyframe database again."""
+        state, meta = ckpt.load_map(path, self.device)
+        sh = self.shared
+        sh.state = state
+        sh.n_kf = meta["n_kf"]
+        sh.n_mp = meta["n_mp"]
+        seq = state.kf_seq.cpu().numpy()
+        valid = state.kf_valid.cpu().numpy()
+        sh.kf_uid[:] = -1
+        sh.kf_uid[: len(seq)] = seq
+        sh.uid_slot = {int(seq[k]): int(k)
+                       for k in np.nonzero(valid & (seq >= 0))[0]}
+        floor = int(seq.max()) + 1 if (seq >= 0).any() else 0
+        sh.n_created = max(floor, int(meta.get("n_created", 0)))
+        sh.free_kf = [int(k) for k in range(sh.n_kf) if not valid[k]]
+        sh.pending_release = []
+        # cull chains and trajectories belong to the session before the
+        # restore: dropping them keeps a reissued-looking uid from re-chaining
+        # an exported frame onto an unrelated keyframe
+        sh.cull_info = {}
+        if self.loop_closer is not None:
+            lcl = self.loop_closer
+            for k in np.nonzero(valid)[0]:
+                lcl.db, _, _ = kfdb_mod.add_keyframe(
+                    lcl.db, self.vocab, int(k), state.kf_desc[int(k)],
+                    state.kf_feat_valid[int(k)])
 
     def shutdown(self):
         self._process_keyframes()

@@ -191,7 +191,7 @@ class Tracker:
             raise NotImplementedError(
                 "only Sensor.STEREO is ported; monocular and RGB-D tracking "
                 "are ROADMAP.md queue 1 item 13, 'Mono, RGB-D and "
-                "relocalization'")
+                "localization-only'")
         self.cfg = cfg
         self.shared = shared
         self.device = torch.device(device)
@@ -232,12 +232,12 @@ class Tracker:
     def track_mono(self, img, frame_id: Optional[int] = None):
         raise NotImplementedError(
             "monocular tracking is not ported yet: ROADMAP.md queue 1 item "
-            "13, 'Mono, RGB-D and relocalization'")
+            "13, 'Mono, RGB-D and localization-only'")
 
     def track_rgbd(self, img, depth, frame_id: Optional[int] = None):
         raise NotImplementedError(
             "RGB-D tracking is not ported yet: ROADMAP.md queue 1 item 13, "
-            "'Mono, RGB-D and relocalization'")
+            "'Mono, RGB-D and localization-only'")
 
     def track_features(self, feats: frame_mod.FrameFeatures,
                        frame_id: Optional[int] = None):
@@ -270,8 +270,8 @@ class Tracker:
                 ok = self._initialize(feats)
                 self._record(lost=not ok)
                 return (self.last_q, self.last_t) if ok else None
-            # once lost, only relocalization recovers, and that is not
-            # ported: dead-reckon so the trajectory stays continuous
+            # once lost, only relocalization recovers (the System facade
+            # owns that step): dead-reckon so the trajectory stays continuous
             self.last_q, self.last_t = q_pred, t_pred
             self.last_feats = feats
             self.last_frame_mp = self._no_matches()
@@ -292,8 +292,8 @@ class Tracker:
         self._last_decision = decision
 
         if not ok:
-            # dead-reckon on the motion model (the reference would
-            # relocalize; relocalization is not ported)
+            # dead-reckon on the motion model; the System facade then
+            # relocalizes
             self.state = TrackerState.LOST
             self.last_q, self.last_t = q_pred, t_pred
             self.last_feats = feats
@@ -326,7 +326,7 @@ class Tracker:
             raise NotImplementedError(
                 "localization-only mode (_track_localization_only, VO "
                 "points) is not ported yet: ROADMAP.md queue 1 item 13, "
-                "'Mono, RGB-D and relocalization'")
+                "'Mono, RGB-D and localization-only'")
         self.only_tracking = False
 
     # -- internals ---------------------------------------------------------
@@ -448,9 +448,11 @@ class Tracker:
 
     @torch.no_grad()
     def reset(self):
-        """Tracking::Reset: drop this agent's map content. The tracker's
-        `state` is left as it is, as in the JAX package: the caller
-        re-initialises explicitly."""
+        """Tracking::Reset (src/Tracking.cc:1522-1572): drop this agent's
+        map content and restart from NOT_INITIALIZED. The JAX package leaves
+        the state as it was (a LOST tracker stays LOST after the auto-reset,
+        and its own test_auto_reset_when_lost_early fails); the port follows
+        the reference."""
         sh = self.shared
         st = sh.state
         mine_kf = (st.kf_agent == self.agent) & st.kf_valid
@@ -477,6 +479,7 @@ class Tracker:
         self.last_frame_mp = None
         self.has_velocity = False
         self.ref_kf = -1
+        self.state = TrackerState.NOT_INITIALIZED
         self.new_kf_slots.clear()
         if self.on_reset is not None:
             self.on_reset(self)

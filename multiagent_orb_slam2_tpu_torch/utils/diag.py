@@ -1,10 +1,16 @@
-"""Environment-gated diagnostics: the place-recognition recall log.
+"""Environment-gated diagnostics: per-frame tracking state and the
+place-recognition recall log.
 
-Counterpart of the part of the JAX package's ``utils/diag.py`` that loop
-closing uses. Off unless ``SLAM_RECALL_LOG=<path>.jsonl`` names a file; then
-one row per place-recognition query, with the survivors of each gate, so
-where a true-overlap candidate died can be answered offline. When it is off,
-nothing is computed or read back.
+Counterpart of the JAX package's ``utils/diag.py``. Both sinks are off
+unless their environment variable names a file; when off, nothing is
+computed or read back:
+
+- ``SLAM_DIAG=<path>.jsonl``: one row per tracked frame (state, the packed
+  decision vector, map occupancy), from host-resident values only: the
+  decision vector is fetched once a frame already.
+- ``SLAM_RECALL_LOG=<path>.jsonl``: one row per place-recognition query,
+  with the survivors of each gate, so where a true-overlap candidate died
+  can be answered offline.
 """
 from __future__ import annotations
 
@@ -43,7 +49,15 @@ def _np_default(o):
     raise TypeError(f"not serializable: {type(o)}")
 
 
+_frame_sink = None
 _recall_sink = None
+
+
+def frame_sink() -> _JsonlSink:
+    global _frame_sink
+    if _frame_sink is None:
+        _frame_sink = _JsonlSink("SLAM_DIAG")
+    return _frame_sink
 
 
 def recall_sink() -> _JsonlSink:
@@ -51,6 +65,21 @@ def recall_sink() -> _JsonlSink:
     if _recall_sink is None:
         _recall_sink = _JsonlSink("SLAM_RECALL_LOG")
     return _recall_sink
+
+
+def log_frame(agent: int, frame_id: int, tracker, shared):
+    """One row per processed frame; everything here is already on the host
+    (the packed decision vector is fetched once per frame regardless)."""
+    sink = frame_sink()
+    if not sink.enabled:
+        return
+    dec = tracker._last_decision
+    sink.write(dict(
+        agent=agent, frame=frame_id, state=tracker.state,
+        decision=None if dec is None else [int(x) for x in dec],
+        ref_kf=tracker.ref_kf, n_kf_live=len(shared.uid_slot),
+        n_kf_slots=shared.n_kf, n_mp=shared.n_mp,
+        stalls=shared.n_point_stalls, compactions=shared.n_compactions))
 
 
 def log_recall_query(kind: str, agent: int, kf_slot: int, frame_id: int,

@@ -34,9 +34,28 @@ def test_config_from_dict_equals_jax_config():
 @pytest.mark.parametrize("what", ["local_ba", "loop_closing", "vocab",
                                   "localization", "mono_sensor", "rgbd",
                                   "track_mono", "save_map"])
-def test_unported_paths_raise(what):
+def test_unported_paths_raise(what, tmp_path):
     """Nothing that waits for a later slice degrades silently."""
     shared = ttr.SharedMap(TCFG, device="cpu")
+    if what == "save_map":
+        # ported: a checkpoint of a map (two keyframes, points) restores
+        # every field and the slot counters
+        system = tsys.System(TCFG, None, enable_loop_closing=False,
+                             device="cpu")
+        frames, _ = sequence(12)
+        for i, (left, right) in enumerate(frames[:2]):
+            system.track_stereo(left, right, frame_id=i)
+        system.save_map(str(tmp_path / "map.npz"))
+        restored = tsys.System(TCFG, None, enable_loop_closing=False,
+                               device="cpu")
+        restored.load_map(str(tmp_path / "map.npz"))
+        for name, a in system.shared.state._asdict().items():
+            assert torch.equal(getattr(restored.shared.state, name), a), name
+        assert (restored.shared.n_kf, restored.shared.n_mp,
+                restored.shared.n_created) == (system.shared.n_kf,
+                                               system.shared.n_mp,
+                                               system.shared.n_created)
+        return
     if what == "local_ba":
         # ported: local BA is the default of Tracker and System, as in the
         # JAX package, and System has no argument to turn it off
@@ -88,12 +107,9 @@ def test_unported_paths_raise(what):
         elif what == "rgbd":
             tsys.System(TCFG, None, enable_loop_closing=False,
                         device="cpu").track_rgbd(None, None)
-        elif what == "track_mono":
-            tsys.System(TCFG, None, enable_loop_closing=False,
-                        device="cpu").track_mono(None)
         else:
             tsys.System(TCFG, None, enable_loop_closing=False,
-                        device="cpu").save_map("x")
+                        device="cpu").track_mono(None)
 
 
 def test_default_device_is_cuda_and_never_falls_back():
@@ -154,11 +170,11 @@ def test_compact_points_and_reset():
                                    s1.mp_obs_feat.numpy()[p, o]] == p)
     # tracking goes on after the permutation
     assert tr.track_stereo(*frames[4], frame_id=4) is not None
-    # reset: the agent's map content goes, the state flag stays (as in the
-    # JAX package; the caller re-initialises)
-    state_before = tr.state
+    # reset: the agent's map content goes and the tracker restarts from
+    # NOT_INITIALIZED, as the reference's Tracking::Reset does (the JAX
+    # package leaves the state as it was)
     tr.reset()
-    assert tr.state == state_before and tr.ref_kf == -1
+    assert tr.state == ttr.TrackerState.NOT_INITIALIZED and tr.ref_kf == -1
     assert not shared.state.kf_valid.any() and not shared.state.mp_valid.any()
     assert all(r.lost for r in tr.trajectory)
     assert int(shared.state.covis.sum()) == 0
