@@ -17,26 +17,33 @@ local and global BA, as a user builds the System); a loop detected and
 corrected with global BA on a drifted 110-keyframe ring at (K, P, M) =
 (128, 32768, 24); global BA at the benchmark's size (256, 65536, 8). Then
 trial 0 of the accuracy protocol: the 660-frame loop corridor of
-``analysis/make_synth_seq`` (seed 0, 512x288, rendered by a pool of
-processes) through the single-agent driver ``drivers/run_single`` at the
-default capacities (512 keyframes, 65536 points, 24 observations a point),
-evaluated by ``analysis/genstats``; on the map it leaves, a kidnap (two
-black frames, then relocalization at an earlier pose) and a checkpoint
-round trip. The Schur preparation (K2) and PCG (K3) are held against their
-plain versions on both global BAs' own problems and on the corridor's last
-local BA. It fails (exit code other than 0) when there is no CUDA device,
-when a kernel does not build, launch or agree, when a path never launched
-its kernels, or when a trajectory, the keyframe database, a loop
-correction, a relocalization or a checkpoint is wrong. Needs no network;
-the processes it starts to render the corridor end with it.
+``analysis/make_synth_seq`` (seed 0, 512x288, rendered once by a pool of
+processes); its first 120 frames through the single-agent driver
+``drivers/run_single`` at the default capacities (512 keyframes, 65536
+points, 24 observations a point), evaluated by ``analysis/genstats``; on
+the map it leaves, a kidnap (two black frames, then relocalization at an
+earlier pose) and a checkpoint round trip. Then the whole corridor split
+between two agents under the multi-agent server
+(``drivers/generic_split_seq -n 2``): the maps fuse where agent 1's last
+stretch revisits agent 0's start; each agent's trajectory is evaluated and
+the fused map checkpointed. The Schur preparation (K2) and PCG (K3) are
+held against their plain versions on both global BAs' own problems, on the
+corridor's last local BA and on the first post-fusion global BA. It fails
+(exit code other than 0) when there is no CUDA device, when a kernel does
+not build, launch or agree, when a path never launched its kernels, or
+when a trajectory, the keyframe database, a loop correction, a
+relocalization, a fusion or a checkpoint is wrong. Needs no network; the
+processes it starts to render the corridor end with it.
 
 Output, in order: the card's name and power limit, build seconds and ptxas
 lines, one line per kernel with the comparison at every shape, each path's
 numbers, the ring's and the benchmark-size global BA's numbers with their
 K2 / K3 checks, the corridor's (``corridor:``), the kidnap's and the
-checkpoint's lines and the K2 / K3 checks on the corridor's local BA, one
-JSON object ``{"kernels": [...]}``, the card line again, and as the last
-line ``{"ok": true, "device": {...}}``.
+checkpoint's lines and the K2 / K3 checks on the corridor's local BA, the
+split phase's (``split:``, ``split checkpoint:``) and the K2 / K3 checks on
+the post-fusion global BA (``fusion GBA``), one JSON object
+``{"kernels": [...]}``, the card line again, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Times: ``ms`` / ``kernel_ms`` of every kernel is the kernel alone (raw
 launches queued back to back between two CUDA events; for the Schur
@@ -71,10 +78,12 @@ from multiagent_orb_slam2_tpu_torch.config import (Capacities, LoopConfig,
                                                    TrackingConfig)
 from multiagent_orb_slam2_tpu_torch import convert
 from multiagent_orb_slam2_tpu_torch.analysis import genstats, make_synth_seq
-from multiagent_orb_slam2_tpu_torch.drivers import run_single
+from multiagent_orb_slam2_tpu_torch.drivers import (generic_split_seq,
+                                                    run_single)
 from multiagent_orb_slam2_tpu_torch.geometry import se3
 from multiagent_orb_slam2_tpu_torch.geometry.camera import Intrinsics
-from multiagent_orb_slam2_tpu_torch.io import ba_problem, synthetic
+from multiagent_orb_slam2_tpu_torch.io import ba_problem, datasets, synthetic
+from multiagent_orb_slam2_tpu_torch.mapstate import checkpoint as ckpt_mod
 from multiagent_orb_slam2_tpu_torch.ops import frame as frame_mod
 from multiagent_orb_slam2_tpu_torch.optim import ba as ba_mod
 from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, ba_prep, pcg
@@ -86,6 +95,7 @@ from multiagent_orb_slam2_tpu_torch.runtime import system as system_mod
 from multiagent_orb_slam2_tpu_torch.runtime import tracker as tracker_mod
 from multiagent_orb_slam2_tpu_torch.runtime.tracker import (TrackerState,
                                                             _np_inverse)
+from multiagent_orb_slam2_tpu_torch.server import server as server_mod
 from multiagent_orb_slam2_tpu_torch.utils import cuda_build, torch_ops
 from multiagent_orb_slam2_tpu_torch.vocab import bow as bow_mod
 
@@ -106,6 +116,14 @@ RING_KF, RING_REV, RING_DRIFT = 110, 5, 0.01
 # (analysis/stats_synthetic.txt, trial0) and the gate PERF.md sets for it
 CORRIDOR_FRAMES, CORRIDOR_SEED = 660, 0
 JAX_ATE_TRIAL0_M = 0.057
+# the single-agent phase tracks the corridor's first 120 frames (more than
+# 30 local BAs, the kidnap's pose among them), so that the script, the split
+# phase included, stays inside its time on a slow host; the whole 660-frame
+# single run stays recorded by analysis/collect_synthetic
+CORRIDOR_SINGLE_FRAMES = 120
+# the 2-agent split of the same corridor (generic_split_seq -n 2): the JAX
+# package's agent0 / agent1 ATE on trial 0 (analysis/stats_synthetic.txt)
+JAX_SPLIT_ATE_TRIAL0_M = (0.025, 0.020)
 CORRIDOR_ATE_GATE_M = 0.15
 CORRIDOR_EXPORTED_GATE = 0.9
 KIDNAP_FRAME = 40      # the kidnapped camera reappears at this frame's pose
@@ -1542,21 +1560,46 @@ def _sync_warnings(caught):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def drive_corridor(work):
-    """Trial 0 of the accuracy protocol: make_synth_seq seed 0, 660 frames,
-    rendered by a pool of processes (timed apart), then the single-agent
-    driver run_single on the card with the committed vocabulary and the
-    settings' default capacities (512 keyframes, 65536 points, 24
-    observations, 1024 feature slots, 8192 local points), then genstats.
-    Every frame is timed (synchronize at its end) and its host waits counted
-    (set_sync_debug_mode), and so are each keyframe, local BA, global BA
-    and relocalization. Gate (PERF.md): ATE mean < CORRIDOR_ATE_GATE_M and
-    at least CORRIDOR_EXPORTED_GATE of the frames exported; the path
-    launched K1 twice a tracked frame and K2 / K3 19 / 15 times a local BA.
-    Returns (System, report, launches, the first solve of the last local BA,
-    the sequence directory)."""
+class Patches:
+    """Wrappers set on module or class attributes for one driven run and
+    taken off again (restore) whatever the run did."""
+
+    def __init__(self):
+        self.real = []
+
+    def __call__(self, owner, name, make):
+        real = getattr(owner, name)
+        self.real.append((owner, name, real))
+        setattr(owner, name, make(real))
+
+    def restore(self):
+        for owner, name, real in reversed(self.real):
+            setattr(owner, name, real)
+        self.real.clear()
+
+
+def timed(ms, key, cur=None, flag=None):
+    """A wrapper maker for Patches: each call is timed between two
+    synchronizes into ms[key], and cur[flag] is set first."""
+    def make(real):
+        def wrapper(*a, **kw):
+            if flag:
+                cur[flag] = True
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+    return make
+
+
+def render_corridor_sequence(work):
+    """Trial 0 of the accuracy protocol's sequence: make_synth_seq seed 0,
+    660 frames, rendered once by a pool of processes for the single-agent
+    and the split phases. Returns (directory, seconds, processes)."""
     seq_dir = os.path.join(work, "seq0")
-    out_dir = os.path.join(work, "out0")
     workers = len(os.sched_getaffinity(0))
     t0 = time.perf_counter()
     make_synth_seq.main(["-o", seq_dir, "--seed", str(CORRIDOR_SEED),
@@ -1565,32 +1608,30 @@ def drive_corridor(work):
     render_s = time.perf_counter() - t0
     print(f"corridor: rendered {CORRIDOR_FRAMES} stereo frames 512x288 on "
           f"the host in {render_s:.1f} s with {workers} processes")
+    return seq_dir, render_s, workers
+
+
+def drive_corridor(seq_dir, work, render_s, workers):
+    """The single-agent driver run_single on the corridor's first
+    CORRIDOR_SINGLE_FRAMES frames, on
+    the card with the committed vocabulary and the settings' default
+    capacities (512 keyframes, 65536 points, 24 observations, 1024 feature
+    slots, 8192 local points), then genstats. Every frame is timed
+    (synchronize at its end) and its host waits counted
+    (set_sync_debug_mode), and so are each keyframe, local BA, global BA
+    and relocalization. Gate (PERF.md): ATE mean < CORRIDOR_ATE_GATE_M and
+    at least CORRIDOR_EXPORTED_GATE of the frames exported; the path
+    launched K1 twice a tracked frame and K2 / K3 19 / 15 times a local BA.
+    Returns (System, report, launches, the first solve of the last local
+    BA)."""
+    out_dir = os.path.join(work, "out0")
 
     frames, cur = [], {"caught": [], "kf": False, "reloc": False,
                        "lba_first": False}
     ms = {k: [] for k in ("keyframe", "local_ba", "gba", "reloc")}
     reloc_rows, gba_launches, kept = [], [], {}
     loops = {"detected": 0, "sim3_attempts": 0}
-    patched = []
-
-    def patch(owner, name, make):
-        real = getattr(owner, name)
-        patched.append((owner, name, real))
-        setattr(owner, name, make(real))
-
-    def timing(key, flag=None):
-        def make(real):
-            def wrapper(*a, **kw):
-                if flag:
-                    cur[flag] = True
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = real(*a, **kw)
-                torch.cuda.synchronize()
-                ms[key].append((time.perf_counter() - t) * 1e3)
-                return out
-            return wrapper
-        return make
+    patch = Patches()
 
     def track_stereo(real):
         def wrapper(self, left, right, frame_id=None):
@@ -1611,7 +1652,7 @@ def drive_corridor(work):
         return wrapper
 
     def local_ba(real):
-        inner = timing("local_ba")(real)
+        inner = timed(ms, "local_ba")(real)
 
         def wrapper(*a, **kw):
             cur["lba_first"] = True
@@ -1627,7 +1668,7 @@ def drive_corridor(work):
         return wrapper
 
     def gba(real):
-        inner = timing("gba")(real)
+        inner = timed(ms, "gba")(real)
 
         def wrapper(*a, **kw):
             l0 = (ba_prep.prep_terms.launches, pcg.pcg_solve.launches)
@@ -1669,7 +1710,8 @@ def drive_corridor(work):
         return wrapper
 
     patch(system_mod.System, "track_stereo", track_stereo)
-    patch(tracker_mod.Tracker, "_create_keyframe", timing("keyframe", "kf"))
+    patch(tracker_mod.Tracker, "_create_keyframe",
+          timed(ms, "keyframe", cur, "kf"))
     patch(steps_mod, "local_ba_step", local_ba)
     patch(ba_mod, "ba_solve_fast", solve)
     patch(lc_mod, "global_bundle_adjustment", gba)
@@ -1686,11 +1728,10 @@ def drive_corridor(work):
         system, summary = run_single.run(
             ["-t", "stereo_synth", "-d", seq_dir,
              "-s", os.path.join(seq_dir, "settings.json"), "-o", out_dir,
-             "--device", "cuda"])
+             "--max-frames", str(CORRIDOR_SINGLE_FRAMES), "--device", "cuda"])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-        for owner, name, real in reversed(patched):
-            setattr(owner, name, real)
+        patch.restore()
     run_s = time.perf_counter() - t0
     launches = {"pose_opt": pose_opt.pose_optimize.launches,
                 "ba_prep": ba_prep.prep_terms.launches,
@@ -1710,7 +1751,7 @@ def drive_corridor(work):
     n_lba = len(ms["local_ba"])
     cfg = system.cfg
     report = {
-        "frames": CORRIDOR_FRAMES, "render_s": render_s,
+        "frames": CORRIDOR_SINGLE_FRAMES, "render_s": render_s,
         "render_processes": workers, "run_s": run_s,
         "caps": dataclasses.asdict(cfg.caps),
         "ate_mean_m": ev["ate"] if ev else None,
@@ -1759,10 +1800,11 @@ def drive_corridor(work):
     print("corridor: " + json.dumps(report))
     if ev:
         print(f"corridor: ATE mean {ev['ate']:.4f} m, RMSE "
-              f"{ev['ate_rmse']:.4f} m (the JAX package's trial 0: "
-              f"{JAX_ATE_TRIAL0_M} m); RPE-t {ev['rpe_t']:.4f} m a frame, "
-              f"{ev['rpe_t_per_m']:.4f} m a metre; {ev['n']} of "
-              f"{CORRIDOR_FRAMES} frames exported, {summary['lost']} lost, "
+              f"{ev['ate_rmse']:.4f} m (the JAX package's trial 0, all "
+              f"{CORRIDOR_FRAMES} frames: {JAX_ATE_TRIAL0_M} m); RPE-t "
+              f"{ev['rpe_t']:.4f} m a frame, {ev['rpe_t_per_m']:.4f} m a "
+              f"metre; {ev['n']} of {CORRIDOR_SINGLE_FRAMES} frames "
+              f"exported, {summary['lost']} lost, "
               f"{summary['relocalizations']} relocalizations, "
               f"{loops['detected']} loops detected, "
               f"{summary['loops_corrected']} corrected; keyframes "
@@ -1784,10 +1826,11 @@ def drive_corridor(work):
             or not ev["ate"] < CORRIDOR_ATE_GATE_M:
         problems.append(f"ATE {ev and ev['ate']} m (need < "
                         f"{CORRIDOR_ATE_GATE_M})")
-    if report["frames_exported"] < CORRIDOR_EXPORTED_GATE * CORRIDOR_FRAMES:
+    if report["frames_exported"] < \
+            CORRIDOR_EXPORTED_GATE * CORRIDOR_SINGLE_FRAMES:
         problems.append(f"{report['frames_exported']} frames exported (need "
                         f">= {CORRIDOR_EXPORTED_GATE:.0%} of "
-                        f"{CORRIDOR_FRAMES})")
+                        f"{CORRIDOR_SINGLE_FRAMES})")
     if launches["pose_opt"] < 2 * len(tracked):
         problems.append(f"pose_opt launched {launches['pose_opt']} times for "
                         f"{len(tracked)} tracked frames (need 2 each)")
@@ -1800,7 +1843,7 @@ def drive_corridor(work):
         problems.append(f"a global BA launched K2 / K3 {gba_launches}")
     if problems:
         raise SystemExit("corridor failed: " + "; ".join(problems))
-    return system, report, launches, kept["lba_prob"], seq_dir
+    return system, report, launches, kept["lba_prob"]
 
 
 def kidnap(system):
@@ -1885,6 +1928,277 @@ def checkpoint(system, work):
                                                    b.n_created) \
             or report["database_rows"] != len(a.uid_slot):
         raise SystemExit(f"checkpoint failed: {report}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the same corridor split between two agents under the multi-agent server
+# ---------------------------------------------------------------------------
+
+def drive_split(seq_dir, work):
+    """The corridor split in two halves through generic_split_seq -n 2 as a
+    user runs it (default capacities, the committed vocabulary, loop closing
+    and global BA on): agent 0 tracks frames 0-329, agent 1 frames 330-659,
+    whose last stretch revisits agent 0's start, where the maps fuse. Every
+    frame is timed (synchronize at its end), each keyframe, local BA, global
+    BA, Sim3 attempt and fusion too; host waits are counted per tracked
+    frame, per keyframe frame and per fusion (set_sync_debug_mode). Gate
+    (PERF.md): one final map, at least one fusion, each agent's ATE mean <
+    CORRIDOR_ATE_GATE_M and at least CORRIDOR_EXPORTED_GATE of its frames
+    exported. Returns (server, report, launches, the problem of the first
+    post-fusion global BA)."""
+    out_dir = os.path.join(work, "split0")
+    frames, fusions, sim3, ms = [], [], [], {"keyframe": [], "local_ba": [],
+                                             "gba": []}
+    cur = {"kf": False, "reloc": False, "fusing": False, "detecting": False}
+    kept, gba_launches, loops = {}, [], {"detected": 0}
+    patch = Patches()
+
+    def track_stereo(real):
+        def wrapper(self, left, right, frame_id=None):
+            cur["kf"] = False
+            s0 = len(caught)
+            t = time.perf_counter()
+            out = real(self, left, right, frame_id)
+            torch.cuda.synchronize()
+            frames.append({"agent": self.agent,
+                           "ms": (time.perf_counter() - t) * 1e3,
+                           "syncs": _sync_warnings(caught[s0:]),
+                           "kf": cur["kf"],
+                           "ok": self.state == TrackerState.OK})
+            return out
+        return wrapper
+
+    def fuse(real):
+        def wrapper(self, agent, match, sim3_ms):
+            s0, f0 = len(caught), torch_ops.host_fetch_count()
+            l0 = (ba_prep.prep_terms.launches, pcg.pcg_solve.launches)
+            cur["fusing"] = True
+            t = time.perf_counter()
+            try:
+                real(self, agent, match, sim3_ms)
+            finally:
+                cur["fusing"] = False
+            fusions.append({
+                "agent": agent, "kf_query": match.kf_query,
+                "kf_match": match.kf_match, "n_matches": match.n_matches,
+                "ms": (time.perf_counter() - t) * 1e3,
+                "syncs": _sync_warnings(caught[s0:]),
+                "fetches": torch_ops.host_fetch_count() - f0,
+                "gba_ba_prep": ba_prep.prep_terms.launches - l0[0],
+                "gba_pcg": pcg.pcg_solve.launches - l0[1]})
+        return wrapper
+
+    def fusion_query(real):
+        def wrapper(*a, **kw):
+            cur["detecting"] = True
+            try:
+                return real(*a, **kw)
+            finally:
+                cur["detecting"] = False
+        return wrapper
+
+    def compute_sim3(real):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = real(*a, **kw)
+            torch.cuda.synchronize()
+            sim3.append({"fusion": cur["detecting"],
+                         "ms": (time.perf_counter() - t) * 1e3,
+                         "ok": m is not None})
+            return m
+        return wrapper
+
+    def solve(real):
+        def wrapper(prob, *a, **kw):
+            if cur["fusing"] and "fusion_prob" not in kept:
+                kept["fusion_prob"] = prob
+            return real(prob, *a, **kw)
+        return wrapper
+
+    def gba(real):
+        inner = timed(ms, "gba")(real)
+
+        def wrapper(*a, **kw):
+            l0 = (ba_prep.prep_terms.launches, pcg.pcg_solve.launches)
+            out = inner(*a, **kw)
+            gba_launches.append({
+                "fusion": cur["fusing"],
+                "ba_prep": ba_prep.prep_terms.launches - l0[0],
+                "pcg": pcg.pcg_solve.launches - l0[1]})
+            return out
+        return wrapper
+
+    def process_keyframe(real):
+        def wrapper(*a, **kw):
+            m = real(*a, **kw)
+            loops["detected"] += m is not None
+            return m
+        return wrapper
+
+    Server = server_mod.MultiAgentServer
+    patch(tracker_mod.Tracker, "track_stereo", track_stereo)
+    patch(tracker_mod.Tracker, "_create_keyframe",
+          timed(ms, "keyframe", cur, "kf"))
+    patch(steps_mod, "local_ba_step", timed(ms, "local_ba"))
+    patch(ba_mod, "ba_solve_fast", solve)
+    patch(lc_mod, "global_bundle_adjustment", gba)
+    patch(lc_mod.LoopCloser, "process_keyframe", process_keyframe)
+    patch(lc_mod.LoopCloser, "compute_sim3", compute_sim3)
+    patch(Server, "_fuse", fuse)
+    patch(Server, "_insert_keyframe_fusion", fusion_query)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            server, summary = generic_split_seq.run(
+                ["-t", "stereo_synth", "-n", "2", "-d", seq_dir,
+                 "-s", os.path.join(seq_dir, "settings.json"),
+                 "-o", out_dir, "--device", "cuda"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        patch.restore()
+    run_s = time.perf_counter() - t0
+    launches = {"pose_opt": pose_opt.pose_optimize.launches,
+                "ba_prep": ba_prep.prep_terms.launches,
+                "ba_prep_compact": ba_prep.compact_points.launches,
+                "pcg": pcg.pcg_solve.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    gt = os.path.join(seq_dir, "gt_tum.txt")
+    evs = [genstats.evaluate(gt, os.path.join(out_dir, f"SLAM{a}.txt"))
+           for a in range(2)]
+    n_agent = [len(s) for s in datasets.load_synth_stereo(seq_dir).split(2)]
+
+    def median(values):
+        values = list(values)
+        return statistics.median(values) if values else None
+
+    tracked = [f for f in frames if f["ok"] and not f["kf"]]
+    kf_frames = [f for f in frames if f["kf"]]
+    fusion_sim3 = [x for x in sim3 if x["fusion"]]
+    st = server.shared.state
+    valid = st.kf_valid.cpu().numpy()
+    report = {
+        "frames": CORRIDOR_FRAMES, "frames_per_agent": n_agent,
+        "run_s": run_s, "caps": dataclasses.asdict(server.cfg.caps),
+        "final_maps": summary["final_maps"], "fusions": summary["fusions"],
+        "relocalizations": summary["relocalizations"],
+        "ate_mean_m": [e["ate"] if e else None for e in evs],
+        "ate_rmse_m": [e["ate_rmse"] if e else None for e in evs],
+        "rpe_t_m_per_frame": [e["rpe_t"] if e else None for e in evs],
+        "frames_exported": [e["n"] if e else 0 for e in evs],
+        "frames_lost": [sum(r.lost for r in t.trajectory)
+                        for t in server.trackers.values()],
+        "jax_ate_mean_m": JAX_SPLIT_ATE_TRIAL0_M,
+        "stats": server.stats, "fusion_events": fusions,
+        "fusion_sim3_attempts": len(fusion_sim3),
+        "fusion_sim3_ms": [x["ms"] for x in fusion_sim3],
+        "loop_sim3_attempts": len(sim3) - len(fusion_sim3),
+        "loop_sim3_ms_median": median(x["ms"] for x in sim3
+                                      if not x["fusion"]),
+        "loops_detected": loops["detected"],
+        "keyframes_created": server.shared.n_created,
+        "keyframes_live": int(valid.sum()),
+        "keyframe_agents": sorted(set(
+            st.kf_agent.cpu().numpy()[valid].tolist())),
+        "keyframe_maps": sorted(set(st.kf_map.cpu().numpy()[valid].tolist())),
+        "tracked_frame_ms_median": median(f["ms"] for f in tracked),
+        "keyframe_frame_ms_median": median(f["ms"] for f in kf_frames),
+        "keyframe_ms_median": median(ms["keyframe"]),
+        "local_ba_ms_median": median(ms["local_ba"]),
+        "local_bas": len(ms["local_ba"]),
+        "gba_ms": ms["gba"], "gba_launches": gba_launches,
+        "syncs_per_tracked_frame_median": median(f["syncs"] for f in tracked),
+        "syncs_per_keyframe_frame_median": median(f["syncs"]
+                                                  for f in kf_frames),
+        "syncs_per_fusion": [f["syncs"] for f in fusions],
+        "max_memory_allocated_mb": peak_mb,
+        "launches": launches,
+    }
+    print("split: " + json.dumps(report))
+    for row in server.stats:
+        print("split: stats.csv row: " + ", ".join(
+            f"{k} {row[k]:.2f}" if isinstance(row[k], float)
+            else f"{k} {row[k]}" for k in (
+                "sim3_ms", "mf_ms", "ckf", "cmp", "mkf", "mmp", "cd_ms",
+                "n_cd", "gba_ms")))
+    print(f"split: ATE mean agent0 / agent1 {report['ate_mean_m']} m (the "
+          f"JAX package's trial 0: {JAX_SPLIT_ATE_TRIAL0_M[0]} / "
+          f"{JAX_SPLIT_ATE_TRIAL0_M[1]} m); exported "
+          f"{report['frames_exported']} of {n_agent}; final maps "
+          f"{summary['final_maps']}, fusions {summary['fusions']}, "
+          f"relocalizations {summary['relocalizations']}; run {run_s:.1f} s")
+    print(f"split: medians, ms: tracked frame "
+          f"{report['tracked_frame_ms_median']}, keyframe "
+          f"{report['keyframe_ms_median']}, local BA "
+          f"{report['local_ba_ms_median']} ({len(ms['local_ba'])}); waits: "
+          f"tracked frame {report['syncs_per_tracked_frame_median']}, "
+          f"keyframe frame {report['syncs_per_keyframe_frame_median']}, "
+          f"fusion {report['syncs_per_fusion']}; fusion Sim3 attempts "
+          f"{len(fusion_sim3)}; peak device memory {peak_mb:.1f} MB; "
+          f"launches K1 / K2 / K3 {launches['pose_opt']} / "
+          f"{launches['ba_prep']} / {launches['pcg']}")
+    problems = []
+    if summary["final_maps"] != 1 or summary["fusions"] < 1:
+        problems.append(f"{summary['final_maps']} final maps, "
+                        f"{summary['fusions']} fusions (need 1 and >= 1)")
+    for a, (e, n) in enumerate(zip(evs, n_agent)):
+        if e is None or not np.isfinite(e["ate"]) \
+                or not e["ate"] < CORRIDOR_ATE_GATE_M:
+            problems.append(f"agent {a}: ATE {e and e['ate']} m (need < "
+                            f"{CORRIDOR_ATE_GATE_M})")
+        if (e["n"] if e else 0) < CORRIDOR_EXPORTED_GATE * n:
+            problems.append(f"agent {a}: {e and e['n']} of {n} frames "
+                            f"exported (need >= "
+                            f"{CORRIDOR_EXPORTED_GATE:.0%})")
+    if report["keyframe_agents"] != [0, 1] or \
+            len(report["keyframe_maps"]) != 1:
+        problems.append(f"live keyframes of agents "
+                        f"{report['keyframe_agents']} on maps "
+                        f"{report['keyframe_maps']} (need both on one)")
+    if launches["pose_opt"] < 2 * len(tracked) or \
+            launches["ba_prep"] < 19 * len(ms["local_ba"]) or \
+            launches["pcg"] < 15 * len(ms["local_ba"]):
+        problems.append(f"launches {launches} for {len(tracked)} tracked "
+                        f"frames and {len(ms['local_ba'])} local BAs")
+    if "fusion_prob" not in kept or any(
+            g["ba_prep"] < 10 or g["pcg"] < 10 for g in gba_launches):
+        problems.append(f"global BAs launched K2 / K3 {gba_launches}")
+    if problems:
+        raise SystemExit("split failed: " + "; ".join(problems))
+    return server, report, launches, kept["fusion_prob"]
+
+
+def checkpoint_fused(server, work):
+    """save_map / load_map of the fused map (both agents' keyframes under
+    one map id): every MapState field bit-equal after the round trip."""
+    sh = server.shared
+    path = os.path.join(work, "fused.npz")
+    t = time.perf_counter()
+    ckpt_mod.save_map(path, sh.state, sh.n_kf, sh.n_mp,
+                      extra={"n_created": sh.n_created})
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    state, meta = ckpt_mod.load_map(path, sh.device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    differ = [k for k, v in sh.state._asdict().items()
+              if not torch.equal(getattr(state, k), v)]
+    report = {"fields": len(state), "fields_differ": differ,
+              "n_kf": [sh.n_kf, meta["n_kf"]], "n_mp": [sh.n_mp, meta["n_mp"]],
+              "n_created": [sh.n_created, meta["n_created"]],
+              "file_mb": os.path.getsize(path) / 2 ** 20,
+              "save_s": save_s, "load_s": load_s}
+    print("split checkpoint: " + json.dumps(report))
+    if differ or (sh.n_kf, sh.n_mp, sh.n_created) != \
+            (meta["n_kf"], meta["n_mp"], meta["n_created"]):
+        raise SystemExit(f"fused map checkpoint failed: {report}")
     return report
 
 
@@ -1973,22 +2287,36 @@ def main():
     del bench_prob
     torch.cuda.empty_cache()
 
-    # 6. the 660-frame loop corridor (trial 0) through the single-agent
-    # driver at the default capacities; the kidnap and the checkpoint on the
-    # map it left; K2 and K3 against their plain versions on the first build
-    # of its last local BA, at (512, 65536, 24) and D = 3072
+    # 6. the 660-frame loop corridor (trial 0), rendered once: its first
+    # half through the single-agent driver at the default capacities, with
+    # the kidnap and the checkpoint on the map it left, and K2 and K3
+    # against their plain versions on the first build of its last local BA,
+    # at (512, 65536, 24) and D = 3072; then the whole corridor split
+    # between two agents under the multi-agent server, the checkpoint of the
+    # fused map, and K2 and K3 on the first post-fusion global BA's problem
     with tempfile.TemporaryDirectory() as work:
-        system, corridor, corridor_launches, lba_prob, _ = \
-            drive_corridor(work)
+        seq_dir, render_s, workers = render_corridor_sequence(work)
+        system, corridor, corridor_launches, lba_prob = drive_corridor(
+            seq_dir, work, render_s, workers)
         kidnap_report, kidnap_k1 = kidnap(system)
         checkpoint(system, work)
-    lba_cam = system.cfg.camera
-    del system
+        cam = system.cfg.camera
+        del system
+        torch.cuda.empty_cache()
+        lba_k2, lba_k3 = check_gba_kernels(
+            "corridor local BA", lba_prob, cam,
+            steps_mod._ba_chunk(lba_prob.pw.shape[0]))
+        del lba_prob
+        torch.cuda.empty_cache()
+        server, split, split_launches, fusion_prob = drive_split(seq_dir,
+                                                                 work)
+        checkpoint_fused(server, work)
+    del server
     torch.cuda.empty_cache()
-    lba_k2, lba_k3 = check_gba_kernels(
-        "corridor local BA", lba_prob, lba_cam,
-        steps_mod._ba_chunk(lba_prob.pw.shape[0]))
-    del lba_prob
+    fusion_k2, fusion_k3 = check_gba_kernels(
+        "fusion GBA", fusion_prob, cam,
+        steps_mod._ba_chunk(fusion_prob.pw.shape[0]))
+    del fusion_prob
 
     # 7. the record: each kernel at the shape its main path gives it, its
     # launches read right after each path; K2 and K3 also at the two global
@@ -2005,6 +2333,7 @@ def main():
         "launches_corridor": corridor_launches["pose_opt"],
         "launches_reloc": corridor["pose_opt_launches_in_relocalization"],
         "launches_kidnap_reloc": kidnap_k1,
+        "launches_split": split_launches["pose_opt"],
         "max_abs_err": k1["max_err"],
         "ms": k1["kernel_ms"], "ms_v1": k1["ms_v1"],
         "wrapper_ms": k1["wrapper_ms"], "wrapper_ms_v1": k1["wrapper_ms_v1"],
@@ -2037,8 +2366,10 @@ def main():
         "launches_ring_gba": ring_launches["ba_prep"],
         "launches_bench_gba": bench_launches["ba_prep"],
         "launches_corridor": corridor_launches["ba_prep"],
+        "launches_split": split_launches["ba_prep"],
         **gba_keys(ring_k2, "ring_gba"), **gba_keys(bench_k2, "bench_gba"),
         **gba_keys(lba_k2, "corridor_lba"),
+        **gba_keys(fusion_k2, "fusion_gba"),
     }, {
         "name": "pcg", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/pcg.cu",
@@ -2059,8 +2390,10 @@ def main():
         "launches_ring_gba": ring_launches["pcg"],
         "launches_bench_gba": bench_launches["pcg"],
         "launches_corridor": corridor_launches["pcg"],
+        "launches_split": split_launches["pcg"],
         **gba_keys(ring_k3, "ring_gba"), **gba_keys(bench_k3, "bench_gba"),
         **gba_keys(lba_k3, "corridor_lba"),
+        **gba_keys(fusion_k3, "fusion_gba"),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,9 @@
 
 The engine has no weights; its state is ``MapState``, ``FrameFeatures``,
 ``PoseObs``, the bundle-adjustment tuples ``BAProblem`` / ``BAResult``, the
-loop-closing tuples ``PoseGraphEdges`` / ``PoseGraphResult``, the keyframe
-database ``KFDatabase`` and the ``Vocabulary``. These functions take and
+loop-closing tuples ``PoseGraphEdges`` / ``PoseGraphResult`` and a verified
+loop or fusion match ``Sim3Match``, the keyframe database ``KFDatabase`` and
+the ``Vocabulary``. These functions take and
 return numpy arrays (a test calls ``np.asarray`` on the JAX side), so
 nothing here imports JAX. ``uint32``
 descriptor words are re-viewed as ``int32`` (same bits), never
@@ -23,6 +24,7 @@ from .ops.frame import FrameFeatures
 from .optim.ba import BAProblem, BAResult
 from .optim.pose_graph import PoseGraphEdges, PoseGraphResult
 from .optim.pose_opt import PoseObs
+from .runtime.loop_closing import Sim3Match
 from .vocab.bow import Vocabulary
 from .vocab.kfdb import KFDatabase
 
@@ -114,6 +116,18 @@ def pose_graph_result_from_numpy(fields: dict, device) -> PoseGraphResult:
 
 def pose_graph_result_to_numpy(result: PoseGraphResult) -> dict:
     return _to_numpy(result)
+
+
+def sim3_match_from_numpy(fields: dict, device) -> Sim3Match:
+    """{"kf_query", "kf_match", "s", "q", "t", "point_ids", "n_matches"}
+    (the JAX package's Sim3Match fields, arrays as numpy) -> Sim3Match with
+    its point_ids on `device`."""
+    return Sim3Match(
+        kf_query=int(fields["kf_query"]), kf_match=int(fields["kf_match"]),
+        s=float(fields["s"]), q=np.asarray(fields["q"], np.float32),
+        t=np.asarray(fields["t"], np.float32),
+        point_ids=to_tensor(fields["point_ids"], device),
+        n_matches=int(fields["n_matches"]))
 
 
 def kfdb_from_numpy(fields: dict, device) -> KFDatabase:

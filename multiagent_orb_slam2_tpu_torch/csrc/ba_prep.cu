@@ -6,9 +6,16 @@
 // pose, quaternion transform, stereo / mono reprojection residual, chi2, Huber
 // weight and robust cost, the Jacobians Jc (3x6, pose twist) and Jp (3x3,
 // point). Per point: Hpp = sum_m Jp^T w Jp and bp = -sum_m Jp^T w r, Hpp
-// damped by (1 + lambda) + 1e-8 on the diagonal and inverted as a symmetric
-// 3x3. Then per slot again: Wb = Jc^T w Jp, Y = Wb Hpp^-1, Ht = Jc^T w Jc,
-// bt = -Jc^T w r, Ybp = Y bp. The same kernel is the cost-only evaluator of
+// damped by lambda (h + lambda h + 1e-8 on the diagonal) and inverted as a
+// symmetric 3x3. The camera-frame point, the residual, Jp, the point block
+// and its damped inverse follow the plain version's formulas
+// (optim/ba_kernels.py) operation for operation, and the source is built
+// without fused multiply-adds (utils/cuda_build.SOURCE_FLAGS), so the two
+// round alike: for a point a decimetre from a camera far from the origin,
+// or a point seen once, float32 leaves the residual or the damped inverse
+// mostly rounding, and rounded alike they still agree. Then per slot
+// again: Wb = Jc^T w Jp, Y = Wb Hpp^-1, Ht = Jc^T w Jc, bt = -Jc^T w r,
+// Ybp = Y bp. The same kernel is the cost-only evaluator of
 // the LM accept test (mode cost_only: residual, chi2 and robust cost, nothing
 // else computed or written).
 //
@@ -171,9 +178,10 @@ __device__ __forceinline__ void point_terms(const Obs& o,
 // Damped symmetric 3x3 inverse of the summed h (00, 01, 02, 11, 12, 22).
 __device__ __forceinline__ void damped_inverse(const float* h, float lam,
                                                float (&Hi)[3][3]) {
-  const float h00 = h[0] * (1.0f + lam) + 1e-8f, h01 = h[1], h02 = h[2];
-  const float h11 = h[3] * (1.0f + lam) + 1e-8f, h12 = h[4];
-  const float h22 = h[5] * (1.0f + lam) + 1e-8f;
+  // damped as ba_kernels.sym3_inv does it, operation for operation
+  const float h00 = h[0] + lam * h[0] + 1e-8f, h01 = h[1], h02 = h[2];
+  const float h11 = h[3] + lam * h[3] + 1e-8f, h12 = h[4];
+  const float h22 = h[5] + lam * h[5] + 1e-8f;
   const float c00 = h11 * h22 - h12 * h12;
   const float c01 = h02 * h12 - h01 * h22;
   const float c02 = h01 * h12 - h02 * h11;

@@ -4,6 +4,7 @@ Counterpart of the JAX package's ``drivers/common.py``, without its
 compilation cache (XLA only). The vocabulary is the committed asset read by
 path (``vocab.bow.DEFAULT_VOCAB``); training one from the sequences is the
 last resort. Raw-camera rectification (``io/rectify``) is not ported.
+``write_fusion_stats`` writes the multi-agent drivers' stats.csv.
 """
 from __future__ import annotations
 
@@ -145,3 +146,19 @@ class FrameTimer:
         ts = sorted(self.times)
         print(f"median {label} time: {ts[len(ts) // 2] * 1e3:.1f} ms")
         print(f"mean {label} time:   {np.mean(ts) * 1e3:.1f} ms")
+
+
+def write_fusion_stats(path: str, stats: list):
+    """stats.csv with the reference's schema (generic_split_seq.cc: sim3,
+    mf, ckf, cmp, mkf, mmp, the cd columns, gba; times in microseconds)."""
+    with open(path, "w") as f:
+        f.write("sim3,mf,ckf,cmp,mkf,mmp,cd,cdsum,cdmean,cdstdev,cdmed,gba\n")
+        for s in stats:
+            f.write(f"{s['sim3_ms'] * 1e3:.0f},{s['mf_ms'] * 1e3:.0f},"
+                    f"{s['ckf']},{s.get('cmp', 0)},{s.get('mkf', 0)},"
+                    f"{s.get('mmp', 0)},{s['cd_ms'] * 1e3:.0f},"
+                    f"{s.get('cd_sum_ms', 0) * 1e3:.0f},"
+                    f"{s.get('cd_mean_ms', 0) * 1e3:.0f},"
+                    f"{s.get('cd_stdev_ms', 0) * 1e3:.0f},"
+                    f"{s.get('cd_med_ms', 0) * 1e3:.0f},"
+                    f"{s['gba_ms'] * 1e3:.0f}\n")

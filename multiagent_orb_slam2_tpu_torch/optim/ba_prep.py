@@ -260,6 +260,32 @@ def _prep_terms_cuda(ws, q, t, pw, lam, cam, delta2_m, delta2_s, use_huber,
 
 def _prep_terms_plain(ws, q, t, pw, lam, cam, delta2_m, delta2_s, use_huber,
                       cost_only=False):
+    """The kernel's terms, computed at the points with an active slot (the
+    kernel's list) and scattered into zeros: every other point's terms are
+    zero, as the kernel leaves them. The list is read once (a host wait on
+    a CUDA tensor, where this version serves only as a reference)."""
+    P, M = ws.kf.shape
+    idx = torch.nonzero(ws.active.amax(dim=1) > 0)[:, 0]
+    if len(idx) == 0:       # nothing listed: every term is zero
+        return _prep_terms_listed(ws, q, t, pw, lam, cam, delta2_m, delta2_s,
+                                  use_huber, cost_only)
+    sub = ws._replace(kf=ws.kf[idx], uvr=ws.uvr[idx], isig=ws.isig[idx],
+                      flags=ws.flags[idx], active=ws.active[idx])
+    terms = _prep_terms_listed(sub, q, t, pw[idx], lam, cam, delta2_m,
+                               delta2_s, use_huber, cost_only)
+
+    def scatter(name, a):
+        if a is None:
+            return None
+        axis = a.dim() - (1 if name in ("hinv6", "bp") else 2)   # points
+        full = a.new_zeros(a.shape[:axis] + (P,) + a.shape[axis + 1:])
+        return full.index_copy_(axis, idx, a)
+
+    return PrepTerms(*[scatter(n, a) for n, a in zip(terms._fields, terms)])
+
+
+def _prep_terms_listed(ws, q, t, pw, lam, cam, delta2_m, delta2_s, use_huber,
+                       cost_only=False):
     """The kernel's terms from obs_terms_e + sym3_inv + the componentwise
     stacks, computed over E = P * M (observation e = p * M + m)."""
     P, M = ws.kf.shape

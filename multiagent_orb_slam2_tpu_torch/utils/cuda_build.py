@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library ``build/<name>_<hash>.so`` at the repository root, where <hash>
 covers the source text, the headers beside it (``csrc/*.cuh``) and the
-compiler flags, so an edit rebuilds. The build
+compiler flags (``NVCC_FLAGS`` and the source's own ``SOURCE_FLAGS``), so
+an edit rebuilds. The build
 happens at first use and never falls back: a failure raises with nvcc's
 output. Several sources are compiled by concurrent nvcc processes.
 """
@@ -23,6 +24,12 @@ BUILD_DIR = _PKG.parent / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The Schur preparation rounds as its plain version's tensor ops do, which
+# never fuse a multiply into an add: where float32 leaves a residual or a
+# damped 3x3 inverse mostly rounding (a point a decimetre from a camera far
+# from the origin, a point seen once), the kernel and its plain version
+# still agree.
+SOURCE_FLAGS = {"ba_prep": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
@@ -44,8 +51,9 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ()))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + flags.encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}_{digest}.so"
 
 
@@ -61,7 +69,8 @@ def load_libraries(names) -> dict[str, ctypes.CDLL]:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o",
+                 str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         pending.append((name, lib, proc, time.perf_counter()))
     for name, lib, proc, t0 in pending:

@@ -114,9 +114,25 @@ def set_drop(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
         # a host scalar goes in as a kernel argument, not as an upload
         buf.index_fill_(0, idx.long(), val)
         return buf[:n]
+    idx = idx.long()
     val = val.to(dst.dtype).expand(idx.shape + tuple(dst.shape[1:]))
-    buf[idx.long()] = val
+    buf[_last_writes(idx, n)] = val
     return buf[:n]
+
+
+def _last_writes(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """idx with every write but the last one to each slot sent to the
+    sentinel n. Among duplicate indices the last write wins, as in XLA's
+    sequential scatter; on CUDA an index_put with duplicates lets whichever
+    write lands last win, which changes from run to run. An integer max
+    over write positions picks the winner without a host read."""
+    flat = idx.reshape(-1)
+    pos = torch.arange(flat.numel(), device=flat.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64,
+                      device=flat.device).scatter_reduce_(0, flat, pos,
+                                                          reduce="amax")
+    return torch.where(last[flat] == pos, flat,
+                       torch.full_like(flat, n)).reshape(idx.shape)
 
 
 def add_drop(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of multiagent_orb_slam2_tpu_torch/, not
-chip_smoke.py and not the fixtures it imports imports jax or anything of
+"""The port stands alone: no module of multiagent_orb_slam2_tpu_torch/ (the
+multi-agent server and its drivers among them), not chip_smoke.py and not
+the fixtures it imports imports jax or anything of
 multiagent_orb_slam2_tpu."""
 import ast
 import pathlib
@@ -32,6 +33,10 @@ def test_no_jax_imports_in_port_sources():
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_loop_cases.py",
         ROOT / "tests" / "torch_ba_cases.py"]
     assert len(files) > 15
+    for name in ("server/multimap.py", "server/fusion.py", "server/server.py",
+                 "server/__init__.py", "drivers/generic_split_seq.py",
+                 "drivers/two_seq.py"):
+        assert PORT / name in files, name
     offenders = [(str(f.relative_to(ROOT)), name)
                  for f in files for name in _imports(f) if _bad(name)]
     assert not offenders, offenders

@@ -9,6 +9,7 @@ import torch
 from multiagent_orb_slam2_tpu.mapstate import state as jms
 from multiagent_orb_slam2_tpu_torch import convert
 from multiagent_orb_slam2_tpu_torch.mapstate import state as tms
+from multiagent_orb_slam2_tpu_torch.utils.torch_ops import set_drop
 
 from torch_parity import (CFG, TCFG, assert_states_match, j2t,
                           jax_feats_from_torch, jax_state_from_torch,
@@ -87,6 +88,56 @@ def test_add_observations_and_update_covisibility(world):
     np.testing.assert_array_equal(
         tms.covis_neighbors_mask(ts2, kf, 15).numpy(),
         np.asarray(jms.covis_neighbors_mask(js2, kf, 15)))
+
+
+def test_add_observations_with_a_repeated_point(world):
+    """Two features of one keyframe carrying the same point: the point's
+    new observation slot names the later feature in both packages (the
+    last of duplicate writes wins, as in XLA's sequential scatter; on CUDA
+    an index_put would pick one at random)."""
+    tstate, jstate, shared, _ = world
+    F = CFG.caps.max_features
+    kf = 1
+    free = np.nonzero(tstate.kf_mp[kf].numpy() < 0)[0][:6]
+    feat_idx = np.zeros(F, np.int32)
+    feat_idx[:6] = free
+    mp_idx = np.zeros(F, np.int32)
+    mp_idx[:6] = [3, 5, 3, 7, 5, 3]
+    valid = np.zeros(F, bool)
+    valid[:6] = True
+    js = jms.add_observations(jstate, kf, jnp.asarray(feat_idx),
+                              jnp.asarray(mp_idx), jnp.asarray(valid))
+    ts = tms.add_observations(tstate, kf, j2t(feat_idx), j2t(mp_idx),
+                              j2t(valid))
+    assert_states_match(js, ts)
+    obs_kf, obs_ft = ts.mp_obs_kf.numpy(), ts.mp_obs_feat.numpy()
+    for p, last in ((3, free[5]), (5, free[4])):
+        slot = int(np.nonzero(tstate.mp_obs_kf[p].numpy() < 0)[0][0])
+        assert (obs_kf[p, slot], obs_ft[p, slot]) == (kf, last)
+
+
+def test_set_drop_last_write_wins():
+    dst = torch.zeros(6, dtype=torch.int32)
+    idx = torch.tensor([1, 3, 1, 6, 3, 2, 1])
+    val = torch.tensor([10, 30, 11, 99, 31, 20, 12], dtype=torch.int32)
+    np.testing.assert_array_equal(set_drop(dst, idx, val).numpy(),
+                                  [0, 12, 20, 31, 0, 0])
+
+
+@pytest.mark.cuda
+def test_set_drop_last_write_wins_on_the_card():
+    """Many duplicate writes on the card: the last one wins, every time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    idx = torch.from_numpy(rng.integers(0, 64, 1 << 16)).cuda()
+    val = torch.arange(1 << 16, dtype=torch.int32, device="cuda")
+    dst = torch.zeros(64, dtype=torch.int32, device="cuda")
+    want = np.zeros(64, np.int32)       # val rises: the last write is the max
+    np.maximum.at(want, idx.cpu().numpy(), val.cpu().numpy())
+    for _ in range(3):
+        np.testing.assert_array_equal(set_drop(dst, idx, val).cpu().numpy(),
+                                      want)
 
 
 def test_insert_keyframe(world):

@@ -104,6 +104,18 @@ def assert_states_match(jstate, tstate, int_share=1.0, atol=1e-5,
 
 
 @contextlib.contextmanager
+def threads(n: int):
+    """n intra-op threads for one long port run; every test worker starts
+    with one (above), and gets it back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
 def interpreted_pallas_call():
     """While active, `pl.pallas_call` adds interpret=True and drops the TPU
     compiler parameters, so a function of the JAX package that reaches a
