@@ -122,7 +122,8 @@ def write_table(out_path, all_rows, n_trials, device="cpu"):
                     f"exported={r['n'] if r else 0}/"
                     f"{m['frames']} lost={m['lost']} "
                     f"relocs={m['relocalizations']} "
-                    f"loops={m['loops_corrected']}\n")
+                    f"loops={m['loops_corrected']} "
+                    f"resets={m.get('resets', 0)}\n")
             split = t.get("split")
             if split is None:
                 continue
@@ -133,7 +134,9 @@ def write_table(out_path, all_rows, n_trials, device="cpu"):
                         f"{split[f'frames{a}']}\n")
             f.write(f"trial{t['trial']} split: maps={split['final_maps']} "
                     f"fusions={split['fusions']} "
-                    f"relocs={split['relocalizations']}\n")
+                    f"relocs={split['relocalizations']} resets="
+                    + "/".join(str(n) for n in split.get("resets", ()))
+                    + "\n")
 
 
 def main(argv=None):

@@ -83,17 +83,16 @@ def _init_worker(seed: int, z_far: float, cam: Intrinsics):
 
 
 def _render(pose):
-    left, right, _ = _scene.render_stereo(_cam, *pose)
-    return left, right
+    return _scene.render_stereo(_cam, *pose)
 
 
 def render_stereo_frames(seed: int, cam: Intrinsics, q_wc, t_wc,
                          z_far: float = 30.0, workers: int = 1):
-    """Yield the float32 stereo pair (left, right) of each pose in
-    ``BoxScene(seed, z_far)``, in order. With workers > 1 a pool of that
-    many processes renders (``spawn`` start method; a worker that fails to
-    start raises BrokenProcessPool); the pairs are the serial ones, bit for
-    bit."""
+    """Yield the float32 stereo pair and the left camera's exact depth
+    (left, right, depth) of each pose in ``BoxScene(seed, z_far)``, in
+    order. With workers > 1 a pool of that many processes renders (``spawn``
+    start method; a worker that fails to start raises BrokenProcessPool);
+    the frames are the serial ones, bit for bit."""
     poses = list(zip(q_wc, t_wc))
     if workers > 1:
         with ProcessPoolExecutor(
@@ -114,7 +113,7 @@ def write_sequence(out: str, seed: int, q_wc, t_wc, cam: Intrinsics,
     n = len(q_wc)
     os.makedirs(out, exist_ok=True)
     frames = render_stereo_frames(seed, cam, q_wc, t_wc, workers=workers)
-    for i, (left, right) in enumerate(frames):
+    for i, (left, right, _) in enumerate(frames):
         np.save(os.path.join(out, f"left_{i:05d}.npy"),
                 np.clip(left, 0, 255).astype(np.uint8))
         np.save(os.path.join(out, f"right_{i:05d}.npy"),

@@ -403,7 +403,15 @@ int launch_cluster(void (*kern)(KArgs...), int nb, size_t smem,
 // ---------------------------------------------------------------------------
 
 // out[row] = S[row, :] . v for this block's rows; returns, in every lane of a
-// warp, that warp's sum of v[row] * out[row].
+// warp, that warp's sum of v[row] * out[row]. Each row's products are summed
+// in float64 and rounded once: on an ill-conditioned system (a global BA's
+// D = 3072) the rounding of a float32 sum, which depends on the summation
+// order, moves the early iterates along directions S hardly sees by as much
+// as reordering the plain version's poses does, more than the check against
+// the plain version allows; summed in float64 the grid path stays close to a
+// float64 CG. Acc = float is that earlier design, kept for timing it beside
+// the present one (pcg_launch_grid_f32rows).
+template <typename Acc>
 __device__ __forceinline__ float matvec_rows(const float* __restrict__ S,
                                              const float* v, float* out,
                                              int D) {
@@ -413,7 +421,7 @@ __device__ __forceinline__ float matvec_rows(const float* __restrict__ S,
   float vov = 0.0f;
   for (int row = gwarp; row < D; row += total) {
     const float* srow = S + (size_t)row * D;
-    float acc = 0.0f;
+    Acc acc = 0;
     if ((D & 3) == 0) {
       const float4* s4 = reinterpret_cast<const float4*>(srow);
       const float4* v4 = reinterpret_cast<const float4*>(v);
@@ -421,21 +429,25 @@ __device__ __forceinline__ float matvec_rows(const float* __restrict__ S,
       for (int c = lane; c < D / 4; c += 32) {
         const float4 a = __ldg(s4 + c);
         const float4 b = v4[c];
-        acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+        acc += (Acc)a.x * b.x + (Acc)a.y * b.y + (Acc)a.z * b.z
+            + (Acc)a.w * b.w;
       }
     } else {
 #pragma unroll 4
-      for (int c = lane; c < D; c += 32) acc += __ldg(srow + c) * v[c];
+      for (int c = lane; c < D; c += 32)
+        acc += (Acc)__ldg(srow + c) * v[c];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[row] = acc;
-    vov += v[row] * acc;
+    const float accf = (float)acc;
+    if (lane == 0) out[row] = accf;
+    vov += v[row] * accf;
   }
   return vov;
 }
 
+template <typename Acc>
 __global__ void __launch_bounds__(kThreads)
 pcg_kernel(const float* __restrict__ S, const float* __restrict__ rhs,
            const float* __restrict__ Dinv, const float* __restrict__ x0,
@@ -455,7 +467,7 @@ pcg_kernel(const float* __restrict__ S, const float* __restrict__ rhs,
   if (x0 != nullptr) {
     for (int i = tid; i < D; i += kThreads) p[i] = x0[i];
     __syncthreads();
-    matvec_rows(S, p, Ap, D);
+    matvec_rows<Acc>(S, p, Ap, D);
     grid.sync();
   }
   // owners: r0, z0 = Dinv r0, x = 0, partial r0 . z0
@@ -489,7 +501,7 @@ pcg_kernel(const float* __restrict__ S, const float* __restrict__ rhs,
 
   for (int it = 0; it < n_iters; ++it) {
     // Ap = S p and p . Ap
-    float pap = matvec_rows(S, p, Ap, D);
+    float pap = matvec_rows<Acc>(S, p, Ap, D);
     pap = block_sum(lane == 0 ? pap : 0.0f, red);
     if (tid == 0) part_pap[blockIdx.x] = pap;
     grid.sync();
@@ -558,27 +570,53 @@ barrier_chain_kernel(float* part, float* out, int n) {
 
 size_t smem_bytes(int D) { return (size_t)(((D + 3) & ~3) + kWarps) * 4; }
 
-// Blocks of a cooperative launch for dimension D: one warp per row where the
-// card can hold that many blocks at once, else as many as are co-resident.
-int grid_blocks(int D, int* err) {
+// Blocks of a cooperative launch of `kern` (a pcg_kernel) for dimension D:
+// one warp per row where the card can hold that many blocks at once, else as
+// many as are co-resident.
+int grid_blocks(int D, int* err,
+                const void* kern = (const void*)pcg_kernel<double>) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const size_t smem = smem_bytes(D);
   if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(pcg_kernel,
+    e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_kernel,
-                                                      kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      smem);
   *err = (int)e;
   if (e != cudaSuccess) return 0;
   int blocks = (D + kWarps - 1) / kWarps;
   if (blocks > sms * per_sm) blocks = sms * per_sm;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return blocks;
+}
+
+int launch_grid(const void* kern, const void* S, const void* rhs,
+                const void* Dinv, const void* x0, void* x_out, void* scratch,
+                int D, int K, int n_iters, void* stream) {
+  if (K <= 0 || D != 6 * K || n_iters < 0) return -1;
+  int err = 0;
+  const int blocks = grid_blocks(D, &err, kern);
+  if (err != 0) return err;
+  if (blocks <= 0) return -1;
+  float* sc = (float*)scratch;
+  float* Ap = sc;
+  float* r = sc + D;
+  float* z = sc + 2 * D;
+  float* x = sc + 3 * D;
+  float* part = sc + 4 * D;
+  void* args[] = {(void*)&S, (void*)&rhs, (void*)&Dinv, (void*)&x0,
+                  (void*)&x_out, (void*)&Ap, (void*)&r, (void*)&z, (void*)&x,
+                  (void*)&part, (void*)&D, (void*)&K, (void*)&n_iters};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      kern, dim3(blocks), dim3(kThreads), args, smem_bytes(D),
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -611,25 +649,17 @@ long long pcg_cluster_smem_bytes(int D, int nb) {
 int pcg_launch_grid(const void* S, const void* rhs, const void* Dinv,
                     const void* x0, void* x_out, void* scratch, int D, int K,
                     int n_iters, void* stream) {
-  if (K <= 0 || D != 6 * K || n_iters < 0) return -1;
-  int err = 0;
-  const int blocks = grid_blocks(D, &err);
-  if (err != 0) return err;
-  if (blocks <= 0) return -1;
-  float* sc = (float*)scratch;
-  float* Ap = sc;
-  float* r = sc + D;
-  float* z = sc + 2 * D;
-  float* x = sc + 3 * D;
-  float* part = sc + 4 * D;
-  void* args[] = {(void*)&S, (void*)&rhs, (void*)&Dinv, (void*)&x0,
-                  (void*)&x_out, (void*)&Ap, (void*)&r, (void*)&z, (void*)&x,
-                  (void*)&part, (void*)&D, (void*)&K, (void*)&n_iters};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)pcg_kernel, dim3(blocks), dim3(kThreads), args, smem_bytes(D),
-      (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_grid((const void*)pcg_kernel<double>, S, rhs, Dinv, x0, x_out,
+                     scratch, D, K, n_iters, stream);
+}
+
+// The grid path with each row of S p summed in float32, its earlier design
+// (timing scripts only). Arguments as pcg_launch_grid.
+int pcg_launch_grid_f32rows(const void* S, const void* rhs, const void* Dinv,
+                            const void* x0, void* x_out, void* scratch, int D,
+                            int K, int n_iters, void* stream) {
+  return launch_grid((const void*)pcg_kernel<float>, S, rhs, Dinv, x0, x_out,
+                     scratch, D, K, n_iters, stream);
 }
 
 // The cluster path with a cluster of nb blocks (1..16; above 8 the size is

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``drivers/common.py``, without its
 compilation cache (XLA only). The vocabulary is the committed asset read by
 path (``vocab.bow.DEFAULT_VOCAB``); training one from the sequences is the
-last resort. Raw-camera rectification (``io/rectify``) is not ported.
+last resort. Raw-camera settings get an ``io/rectify.StereoRectifier``.
 ``write_fusion_stats`` writes the multi-agent drivers' stats.csv.
 """
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig, Sensor, from_yaml_dict
+from ..io import rectify
 from ..vocab import bow as bow_mod
 
 SENSOR_OF = {"mono": Sensor.MONOCULAR, "stereo": Sensor.STEREO,
@@ -75,17 +76,18 @@ def _parse_opencv_yaml(path: str) -> dict:
     return out
 
 
-def get_rectifier(settings_path: str):
-    """None for pre-rectified datasets (KITTI, TUM, the synthetic corridor).
-    Settings that carry the raw-camera LEFT./RIGHT. K/D/R/P blocks
-    (EuRoC-style) need ``io/rectify``, which is not ported: they raise."""
+def get_rectifier(settings_path: str, device=torch.device("cuda")):
+    """A StereoRectifier on `device` when the settings file carries the
+    raw-camera LEFT./RIGHT. K/D/R/P blocks (EuRoC-style); None for
+    pre-rectified datasets (KITTI, TUM, the synthetic corridor) and for a
+    settings file this parser cannot read, as in the JAX package."""
     if settings_path and settings_path.endswith((".yaml", ".yml")):
-        d = _parse_opencv_yaml(settings_path)
-        if any(k.startswith(("LEFT.", "RIGHT.")) for k in d):
-            raise NotImplementedError(
-                "stereo rectification (io/rectify.py) is not ported yet: "
-                "ROADMAP.md queue 1 item 13, 'Mono, RGB-D and "
-                "localization-only'")
+        try:
+            d = _parse_opencv_yaml(settings_path)
+        except Exception:
+            return None
+        if rectify.StereoRectifier.available(d):
+            return rectify.StereoRectifier(d, device=device)
     return None
 
 

@@ -7,9 +7,8 @@ sub-sequences, each fed to its own agent; the agents start on separate maps
 and fuse when their maps overlap. Frame i of every agent is tracked in one
 tick, round robin, then the server drains the keyframe queues. Writes the
 per-agent trajectories SLAM0..SLAM{N-1}.txt and stats.csv with the fusion
-timing schema. Runs on the CUDA device unless ``--device`` names another.
-Stereo only: mono and RGB-D sub-sequences raise NotImplementedError naming
-their ROADMAP.md item.
+timing schema. Stereo, RGB-D and monocular sub-sequences. Runs on the CUDA
+device unless ``--device`` names another.
 
   python -m multiagent_orb_slam2_tpu_torch.drivers.generic_split_seq \\
       -t stereo_synth -n 2 -d SEQ -s SEQ/settings.json -o OUT
@@ -36,7 +35,7 @@ def run_server(seqs, sensor_type: str, settings: str, vocab_path: str,
     cfg = common.load_settings(settings, common.SENSOR_OF[
         sensor_type.split("_")[0]])
     vocab = common.get_vocabulary(vocab_path, seqs, cfg, device=device)
-    rect = common.get_rectifier(settings)
+    rect = common.get_rectifier(settings, device)
 
     server = MultiAgentServer(cfg, vocab, device=device)
     trackers = [server.register_client(a) for a in range(len(seqs))]
@@ -69,7 +68,8 @@ def run_server(seqs, sensor_type: str, settings: str, vocab_path: str,
     common.write_fusion_stats(os.path.join(out, "stats.csv"), server.stats)
     summary = {"final_maps": server.multimap.n_maps,
                "fusions": len(server.stats),
-               "relocalizations": server.n_relocalizations}
+               "relocalizations": server.n_relocalizations,
+               "resets": [t.n_resets for t in trackers]}
     return server, summary
 
 

@@ -2,11 +2,11 @@
 in one CLI.
 
 Counterpart of the JAX package's ``drivers/run_single.py``, on the port's
-``System``: load a dataset, track it frame by frame, print the per-frame
-timing, save the TUM (and, for KITTI, KITTI) trajectories, the keyframe
-trajectory and the map. Runs on the CUDA device unless ``--device`` names
-another. Stereo only: mono, RGB-D and raw-camera rectification raise
-NotImplementedError naming their ROADMAP.md item.
+``System``: load a dataset, track it frame by frame (stereo, rectified
+first when the settings carry LEFT./RIGHT. blocks; RGB-D; monocular),
+print the per-frame timing, save the TUM (and, for KITTI, KITTI)
+trajectories, the keyframe trajectory and the map. Runs on the CUDA device
+unless ``--device`` names another.
 
   python -m multiagent_orb_slam2_tpu_torch.drivers.run_single \\
       -t stereo_synth -d SEQ -s SEQ/settings.json -o OUT [--max-frames N]
@@ -50,7 +50,7 @@ def run(argv=None):
     if args.type == "rgbd_tum":
         cfg = cfg.replace(depth_map_factor=1.0 / seq.depth_factor)
     vocab = common.get_vocabulary(args.vocab, [seq], cfg, device=device)
-    rect = common.get_rectifier(args.settings)
+    rect = common.get_rectifier(args.settings, device)
     sys_ = System(cfg, vocab, enable_loop_closing=not args.no_loop_closing,
                   device=device)
 
@@ -87,6 +87,7 @@ def run(argv=None):
         "frames": n,
         "lost": sum(r.lost for r in sys_.tracker.trajectory),
         "relocalizations": sys_.n_relocalizations,
+        "resets": sys_.tracker.n_resets,
         "loops_corrected": (len(sys_.loop_closer.loop_edges)
                             if sys_.loop_closer is not None else 0),
         "keyframes_created": sh.n_created,

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``ops/frame.py``:
 - radius queries are dense masked comparisons over the fixed-capacity
   keypoint array (no feature grid);
 - stereo matching is one masked [N, N] Hamming argmin followed by a batched
-  1-D SAD correlation with parabola subpixel refinement.
+  1-D SAD correlation with parabola subpixel refinement;
+- an RGB-D frame reads its depth map at the rounded keypoints.
 """
 from __future__ import annotations
 
@@ -115,6 +116,23 @@ def compute_stereo_matches(left: FrameFeatures, kp_r: orb.Keypoints,
     return left._replace(u_right=u_right, depth=depth)
 
 
+def compute_stereo_from_rgbd(feats: FrameFeatures, depth_map,
+                             cfg: SlamConfig) -> FrameFeatures:
+    """Fill depth / u_right from a registered depth map (ComputeStereoFromRGBD):
+    the depth at the rounded keypoint, scaled by cfg.depth_map_factor;
+    u_right = x - bf / d where d > 0. depth_map is a float32 [H, W] tensor
+    on the features' device."""
+    H, W = depth_map.shape
+    xi = torch.round(feats.xy[:, 0]).to(torch.int64).clamp(0, W - 1)
+    yi = torch.round(feats.xy[:, 1]).to(torch.int64).clamp(0, H - 1)
+    d = depth_map.reshape(-1)[yi * W + xi] * cfg.depth_map_factor
+    good = feats.valid & (d > 0)
+    neg = torch.full_like(d, -1.0)
+    u_right = torch.where(good, feats.xy[:, 0] - cfg.camera.bf / d.clamp_min(
+        1e-6), neg)
+    return feats._replace(depth=torch.where(good, d, neg), u_right=u_right)
+
+
 def features_in_area(feats: FrameFeatures, center_xy, radius,
                      min_level=None, max_level=None):
     """Dense mask of keypoints within the square window around each centre.
@@ -147,13 +165,9 @@ def _as_image(img, device):
 @torch.no_grad()
 def extract_frame(img, cfg: SlamConfig, right_img=None, depth_map=None,
                   device=torch.device("cuda")) -> FrameFeatures:
-    """Full frame construction: ORB extraction (+ right image), undistortion,
-    stereo fill. Images are numpy arrays or tensors; the work runs on
-    `device`."""
-    if depth_map is not None:
-        raise NotImplementedError(
-            "RGB-D frames (compute_stereo_from_rgbd) are not ported yet: "
-            "ROADMAP.md queue 1 item 13, 'Mono, RGB-D and localization-only'")
+    """Full frame construction: ORB extraction (+ right image or depth
+    map), undistortion, stereo fill. Images are numpy arrays or tensors; the
+    work runs on `device`, where a depth map is uploaded once as float32."""
     img = _as_image(img, device)
     kp = orb.pad_keypoints(orb.extract(img, cfg.orb), cfg.caps.max_features)
     feats = from_keypoints(kp, cfg)
@@ -162,4 +176,7 @@ def extract_frame(img, cfg: SlamConfig, right_img=None, depth_map=None,
         kp_r = orb.pad_keypoints(orb.extract(right_img, cfg.orb),
                                  cfg.caps.max_features)
         feats = compute_stereo_matches(feats, kp_r, img, right_img, cfg)
+    elif depth_map is not None:
+        feats = compute_stereo_from_rgbd(feats, _as_image(depth_map, device),
+                                         cfg)
     return feats

@@ -71,6 +71,7 @@ def load_kernel():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pcg_launch.argtypes = [p] * 6 + [i, i, i, p]
         lib.pcg_launch_grid.argtypes = [p] * 6 + [i, i, i, p]
+        lib.pcg_launch_grid_f32rows.argtypes = [p] * 6 + [i, i, i, p]
         lib.pcg_launch_cluster.argtypes = [p] * 5 + [i, i, i, i, p]
         lib.pcg_scratch_floats.argtypes = [i]
         lib.pcg_grid_blocks.argtypes = [i]
@@ -80,7 +81,7 @@ def load_kernel():
         lib.pcg_barrier_chain_grid.argtypes = [p, p, i, i, p]
         lib.pcg_barrier_chain_cluster.argtypes = [p, i, i, p]
         for fn in (lib.pcg_launch, lib.pcg_launch_grid,
-                   lib.pcg_launch_cluster,
+                   lib.pcg_launch_grid_f32rows, lib.pcg_launch_cluster,
                    lib.pcg_scratch_floats,
                    lib.pcg_grid_blocks, lib.pcg_cluster_blocks,
                    lib.pcg_barrier_chain, lib.pcg_barrier_chain_grid,

@@ -12,14 +12,13 @@ Keyframe slots (``kf_slot``, ``ref_kf``, ``kf1``, ``kf2``) are host integers.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import SlamConfig
 from ..geometry import camera, se3
+from ..geometry.twoview import k_matrices, triangulate_batch
 from ..mapstate import state as ms
 from ..ops import matchers
 from ..ops.frame import FrameFeatures
@@ -28,7 +27,7 @@ from ..optim import pose_opt
 from . import mapping
 from ..utils.torch_ops import (add_drop, const_tensor, fill_at,
                                first_true_indices, host_fetch, mask_from_ids,
-                               set_drop2, top_k_stable)
+                               set_drop, set_drop2, top_k_stable)
 
 NONE = ms.NONE
 
@@ -440,35 +439,6 @@ def recompute_covisibility(state: ms.MapState):
 # Triangulation of new map points (LocalMapping::CreateNewMapPoints)
 # ---------------------------------------------------------------------------
 
-def triangulate_batch(P1, P2, x1, x2):
-    """Batched linear triangulation (Initializer::Triangulate):
-    P1, P2 [..., 3, 4]; x1, x2 [..., 2] -> [..., 3] points.
-    (Own copy of the one function of geometry/twoview.py this slice needs.)
-    """
-    rows = [
-        x1[..., 0:1] * P1[..., 2, :] - P1[..., 0, :],
-        x1[..., 1:2] * P1[..., 2, :] - P1[..., 1, :],
-        x2[..., 0:1] * P2[..., 2, :] - P2[..., 0, :],
-        x2[..., 1:2] * P2[..., 2, :] - P2[..., 1, :],
-    ]
-    A = torch.stack(rows, dim=-2)
-    _, _, vt = torch.linalg.svd(A)
-    Xh = vt[..., -1, :]
-    w = Xh[..., 3:]
-    return Xh[..., :3] / torch.where(torch.abs(w) < 1e-12,
-                                     torch.full_like(w, 1e-12), w)
-
-
-@functools.lru_cache(maxsize=16)
-def _k_matrices(cam, device_str):
-    """(K, K^-1) as float32 tensors on the device; the inverse is taken on
-    the host so the device path has no factorisation with an error check."""
-    Kmat = np.asarray(cam.K.numpy(), np.float32)
-    Kinv = np.linalg.inv(Kmat).astype(np.float32)
-    return (torch.from_numpy(Kmat).to(device_str),
-            torch.from_numpy(Kinv).to(device_str))
-
-
 @torch.no_grad()
 def triangulate_pair_step(state: ms.MapState, kf1: int, kf2: int,
                           mp_base, cfg: SlamConfig):
@@ -503,7 +473,7 @@ def _triangulate_pair_core(state: ms.MapState, kf1: int, kf2: int, mp_base,
     q12, t12 = se3.relative(q2, t2, q1, t1)      # T_2<-1
     R12 = se3.quat_to_matrix(q12)
     E12 = se3.hat(t12) @ R12
-    Kmat, Kinv = _k_matrices(cam, str(dev))
+    Kmat, Kinv = k_matrices(cam, str(dev))
     F12 = Kinv.T @ E12 @ Kinv
 
     free1 = state.kf_feat_valid[kf1] & (state.kf_mp[kf1] < 0)
@@ -816,3 +786,168 @@ def _kf_culling_core(state, center_kf: int, cfg, max_cull: int = 3,
             state, torch.where(used[i], slot_out[i],
                                torch.full_like(slot_out[i], K)))
     return state, cull_vec
+
+
+# ---------------------------------------------------------------------------
+# Monocular initialization (Tracking::CreateInitialMapMonocular)
+# ---------------------------------------------------------------------------
+
+def nanmedian_linear(z):
+    """The median of the non-NaN entries of z [N] as jnp.nanmedian takes
+    it: linear interpolation between the two middle values when their count
+    is even (torch.nanmedian returns the lower one), NaN when there is
+    none. No host read."""
+    zs = torch.sort(z).values                      # NaNs sort last
+    cnt = torch.sum(~torch.isnan(z)).to(z.dtype)
+    q = 0.5 * (cnt - 1.0)
+    low = torch.floor(q)
+    high = torch.ceil(q)
+    hw = q - low
+    lw = 1.0 - hw
+    low = torch.maximum(torch.zeros_like(low), torch.minimum(low, cnt - 1.0))
+    high = torch.maximum(torch.zeros_like(high),
+                         torch.minimum(high, cnt - 1.0))
+    lo = zs.index_select(0, low.to(torch.int64).reshape(1))[0]
+    hi = zs.index_select(0, high.to(torch.int64).reshape(1))[0]
+    return lo * lw + hi * hw
+
+
+@torch.no_grad()
+def mono_init_map_step(state: ms.MapState, ref_feats: FrameFeatures,
+                       cur_feats: FrameFeatures, q2, t2, points, tri_ok,
+                       ref_feat_idx, cur_feat_idx, frame_id0, frame_id1,
+                       agent, map_id, kf_slot0: int, kf_slot1: int,
+                       mp_base: int, cfg: SlamConfig):
+    """Build the initial monocular map from a verified two-view
+    reconstruction (CreateInitialMapMonocular): two keyframes, the
+    triangulated points, and median-depth normalization so the map starts
+    at unit scale.
+
+    points: [N, 3] in the reference (first) camera frame == world frame.
+    tri_ok: [N] bool; ref/cur_feat_idx: [N] feature indices in each frame.
+    Returns (state, frame_mp_cur, scale, n_points), the last two 0-d
+    tensors.
+    """
+    K, F, P, O = state.caps
+    dev = points.device
+    z = torch.where(tri_ok, points[:, 2],
+                    torch.full_like(points[:, 2], float("nan")))
+    med = nanmedian_linear(z)
+    scale = 1.0 / med.clamp_min(1e-6)
+    pts = points * scale
+    t2s = t2 * scale
+
+    q1 = se3.quat_identity(device=dev)
+    t1 = torch.zeros(3, device=dev)
+
+    slots = mp_base + torch.cumsum(tri_ok.to(torch.int32), 0,
+                                   dtype=torch.int32) - 1
+    slots = _none_where(tri_ok & (slots < P), slots)
+    okslot = slots >= 0
+
+    ref_i = ref_feat_idx.long().clamp(0, F - 1)
+    desc = ref_feats.desc[ref_i]
+    dist = torch.linalg.norm(pts, dim=-1).clamp_min(1e-9)
+    normal = pts / dist[:, None]
+    sf = _scale_factors(cfg, dev)
+    level = ref_feats.level[ref_i]
+    max_d = dist * sf[level.long()]
+    min_d = max_d / sf[-1]
+    state = ms.add_points(state, slots, pts, desc, normal, min_d, max_d,
+                          ref_kf=kf_slot0, agent=agent, map_id=map_id,
+                          valid=okslot)
+
+    # frame -> point assignments of both keyframes
+    none_f = torch.full((F,), NONE, dtype=torch.int32, device=dev)
+    fm0 = set_drop(none_f, torch.where(okslot, ref_i,
+                                       torch.full_like(ref_i, F)), slots)
+    cur_i = cur_feat_idx.long().clamp(0, F - 1)
+    fm1 = set_drop(none_f, torch.where(okslot, cur_i,
+                                       torch.full_like(cur_i, F)), slots)
+
+    state = ms.insert_keyframe(state, kf_slot0, ref_feats, q1, t1, frame_id0,
+                               agent, map_id, fm0, parent=NONE,
+                               fixed_origin=True)
+    state = ms.insert_keyframe(state, kf_slot1, cur_feats, q2, t2s, frame_id1,
+                               agent, map_id, fm1, parent=kf_slot0)
+    return state, fm1, scale, torch.sum(okslot.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Localization-only tracking (mbOnlyTracking)
+# ---------------------------------------------------------------------------
+
+class VOTrackResult(NamedTuple):
+    q: torch.Tensor
+    t: torch.Tensor
+    frame_mp: torch.Tensor       # [F] point slot per feature (VO excluded)
+    n_inliers: torch.Tensor      # all inliers (map + VO)
+    n_map_inliers: torch.Tensor  # inliers tied to real map points
+
+
+@torch.no_grad()
+def make_vo_points(state: ms.MapState, feats: FrameFeatures, frame_mp,
+                   q, t, cfg: SlamConfig):
+    """Localization-mode temporal points (UpdateLastFrame): unproject the
+    previous frame's stereo / RGB-D features that have no map point, all
+    closer than the close band and the closest 100 beyond it, ranked by
+    depth with ties in index order (jnp.argsort is stable). Returns
+    ([F, 3] world positions, [F] mask)."""
+    F = feats.xy.shape[0]
+    close_th = cfg.tracking.th_depth * cfg.camera.baseline
+    cand = feats.valid & (feats.depth > 0) & (frame_mp < 0)
+    depth_key = torch.where(cand, feats.depth,
+                            torch.full_like(feats.depth, torch.inf))
+    order = torch.argsort(depth_key, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(F, device=order.device)
+    keep = cand & ((feats.depth < close_th) | (rank < 100))
+    pc = camera.backproject(cfg.camera, feats.xy, feats.depth)
+    q_wc, t_wc = se3.inverse(q, t)
+    return se3.apply(q_wc, t_wc, pc), keep
+
+
+@torch.no_grad()
+def track_motion_model_vo_step(state: ms.MapState, feats: FrameFeatures,
+                               prev_feats: FrameFeatures, prev_frame_mp,
+                               vo_pw, vo_mask, q_pred, t_pred,
+                               cfg: SlamConfig,
+                               radius_mult: float = 1.0) -> VOTrackResult:
+    """Localization-only motion-model tracking: track_motion_model_step
+    where the previous frame contributes both its map points and the
+    temporal VO points of make_vo_points (TrackWithMotionModel in
+    mbOnlyTracking mode)."""
+    K, F, P, O = state.caps
+    th = 7.0 if cfg.sensor == 1 else 15.0
+    mp = prev_frame_mp.long().clamp(0, P - 1)
+    has_mp = (prev_frame_mp >= 0) & prev_feats.valid & state.mp_valid[mp]
+    use_vo = vo_mask & prev_feats.valid & ~has_mp
+    pw = torch.where(use_vo[:, None], vo_pw, state.mp_pos[mp])
+    qmask = has_mp | use_vo
+    uv, ur, depth, vis = matchers.project_points(cfg.camera, q_pred, t_pred,
+                                                 pw)
+    sf = _scale_factors(cfg, feats.xy.device)
+    radius = radius_mult * th * sf[prev_feats.level.long()]
+    res = matchers.match_window(feats, prev_feats.desc, qmask & vis, uv,
+                                radius, pred_ur=ur,
+                                pred_level=prev_feats.level,
+                                th=cfg.matcher.th_high)
+    res = matchers.rotation_consistency(prev_feats.angle, feats.angle, res,
+                                        cfg.matcher.histo_length)
+    frame_assign, res = matchers.resolve_conflicts(res, F)
+    prev_idx = frame_assign.long().clamp(0, F - 1)
+    matched = frame_assign >= 0
+    pw_frame = pw[prev_idx]
+    is_map = matched & has_mp[prev_idx]
+    frame_mp = _none_where(is_map, prev_frame_mp[prev_idx])
+
+    inv_sigma2 = 1.0 / sf[feats.level.long()] ** 2
+    obs = pose_opt.PoseObs(
+        pw=pw_frame,
+        obs=torch.cat([feats.xy, feats.u_right[:, None]], dim=-1),
+        inv_sigma2=inv_sigma2, is_stereo=feats.u_right >= 0,
+        mask=matched & feats.valid)
+    q, t, inlier, n = pose_opt.pose_optimize(q_pred, t_pred, obs, cfg.camera,
+                                             cfg.optimizer)
+    frame_mp = _none_where(inlier, frame_mp)
+    return VOTrackResult(q, t, frame_mp, n, torch.sum(inlier & is_map))

@@ -2,12 +2,12 @@
 trajectory export + checkpointing.
 
 Counterpart of the JAX package's ``runtime/system.py`` (reference System).
-Ported: stereo tracking with local bundle adjustment and keyframe culling,
-loop closing with its keyframe database and global bundle adjustment (on by
-default, as in the JAX package), relocalization of a LOST tracker through
-that database (``runtime/reloc.py``), the trajectory writers and map
-checkpoints in the JAX package's file layout. RGB-D and monocular entry
-points raise NotImplementedError naming their ROADMAP.md item.
+Stereo, RGB-D and monocular tracking with local bundle adjustment and
+keyframe culling, localization-only mode, loop closing with its keyframe
+database and global bundle adjustment (on by default, as in the JAX
+package), relocalization of a LOST tracker through that database
+(``runtime/reloc.py``), the trajectory writers and map checkpoints in the
+JAX package's file layout.
 """
 from __future__ import annotations
 
@@ -26,11 +26,6 @@ from . import loop_closing as lc
 from . import reloc as reloc_mod
 from .tracker import (SharedMap, Tracker, TrackerState, _np_inverse,
                       _np_normalize)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
 
 
 class System:
@@ -75,14 +70,16 @@ class System:
         return self._track(feats, frame_id)
 
     def track_rgbd(self, img, depth, frame_id=None):
-        raise _not_ported("System.track_rgbd",
-                          "13, 'Mono, RGB-D and localization-only'")
+        feats = frame_mod.extract_frame(img, self.cfg, depth_map=depth,
+                                        device=self.device)
+        return self._track(feats, frame_id)
 
     def track_mono(self, img, frame_id=None):
-        raise _not_ported("System.track_mono",
-                          "13, 'Mono, RGB-D and localization-only'")
+        feats = frame_mod.extract_frame(img, self.cfg, device=self.device)
+        return self._track(feats, frame_id)
 
     def activate_localization_mode(self):
+        """Freeze mapping and track only (ActivateLocalizationMode)."""
         self.tracker.set_localization_mode(True)
 
     def deactivate_localization_mode(self):
@@ -188,6 +185,9 @@ class System:
         valid = state.kf_valid.cpu().numpy()
         sh.kf_uid[:] = -1
         sh.kf_uid[: len(seq)] = seq
+        sh.kf_map_of[:] = -1
+        sh.kf_map_of[: len(seq)] = np.where(valid,
+                                            state.kf_map.cpu().numpy(), -1)
         sh.uid_slot = {int(seq[k]): int(k)
                        for k in np.nonzero(valid & (seq >= 0))[0]}
         floor = int(seq.max()) + 1 if (seq >= 0).any() else 0

@@ -6,10 +6,9 @@ never touches image or descriptor data: it sequences the steps of
 ``runtime.steps`` and makes the small-scalar decisions (state transitions,
 keyframe need, slot allocation).
 
-Ported: the stereo path, with local bundle adjustment and keyframe culling
-on every keyframe once the map has three. Monocular and RGB-D tracking and
-localization-only mode raise NotImplementedError naming their ROADMAP.md
-item.
+Stereo, RGB-D and monocular tracking (the monocular two-view bootstrap
+included), with local bundle adjustment and keyframe culling on every
+keyframe once the tracker's map has three, and localization-only mode.
 """
 from __future__ import annotations
 
@@ -20,10 +19,12 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig, Sensor
-from ..geometry import se3
+from ..geometry import se3, twoview
 from ..mapstate import state as ms
 from ..ops import frame as frame_mod
+from ..ops import matchers
 from ..utils.torch_ops import fill_at, host_fetch
+from . import loop_closing as lc
 from . import mapping, steps
 
 
@@ -47,6 +48,13 @@ class SharedMap:
       to the front (one gather per array + a kf_mp rewrite) and rewinds
       n_mp. Creation beyond capacity is dropped and counted in
       n_point_stalls.
+
+    The host also keeps the map id of every live keyframe slot
+    (`kf_map_of`, -1 for a free, culled or invalidated slot), so that
+    `n_kf_in_map` (the reference's Map::KeyFramesInMap) needs no device
+    read. `n_kf` is the slot high-water mark and counts every agent's
+    keyframes, dead slots included; the JAX package's keyframe-count gates
+    read it.
     """
 
     def __init__(self, cfg: SlamConfig, device=torch.device("cuda")):
@@ -57,6 +65,7 @@ class SharedMap:
         self.n_mp = 0
         self.n_created = 0     # total keyframes ever created (uid counter)
         self.kf_uid = np.full(cfg.caps.max_keyframes, -1, np.int64)
+        self.kf_map_of = np.full(cfg.caps.max_keyframes, -1, np.int64)
         self.uid_slot: dict[int, int] = {}   # live uid -> slot
         self.free_kf: list[int] = []
         self.pending_release: list[int] = []
@@ -68,7 +77,8 @@ class SharedMap:
         # later erased
         self.cull_info: dict[int, tuple] = {}
 
-    def alloc_kf(self) -> int:
+    def alloc_kf(self, map_id: int = 0) -> int:
+        """A slot for a new keyframe of map `map_id`."""
         if self.free_kf:
             slot = self.free_kf.pop()
         elif self.n_kf < self.cfg.caps.max_keyframes:
@@ -81,6 +91,7 @@ class SharedMap:
         self.n_created += 1
         self.kf_uid[slot] = uid
         self.uid_slot[uid] = slot
+        self.kf_map_of[slot] = map_id
         self.state = self.state._replace(
             kf_seq=fill_at(self.state.kf_seq.clone(), slot, uid))
         return slot
@@ -94,13 +105,24 @@ class SharedMap:
                 self.cull_info[uid] = (int(self.kf_uid[parent_slot]),
                                        rel_q, rel_t)
             self.uid_slot.pop(uid, None)
+        self.kf_map_of[slot] = -1
         self.pending_release.append(slot)
 
     def note_invalidated(self, slot: int):
         """Keyframe invalidated without chain info (agent reset)."""
         uid = int(self.kf_uid[slot])
         self.uid_slot.pop(uid, None)
+        self.kf_map_of[slot] = -1
         self.pending_release.append(slot)
+
+    def relabel_map(self, src: int, dst: int):
+        """Every live keyframe of map `src` now belongs to map `dst` (a
+        fusion)."""
+        self.kf_map_of[self.kf_map_of == src] = dst
+
+    def n_kf_in_map(self, map_id: int) -> int:
+        """Live keyframes of map `map_id`, from the host's labels."""
+        return int(np.count_nonzero(self.kf_map_of == map_id))
 
     def reclaim_slots(self):
         """Move database-erased slots to the free list."""
@@ -187,11 +209,6 @@ class Tracker:
     def __init__(self, cfg: SlamConfig, shared: SharedMap, agent: int = 0,
                  map_id: int = 0, run_local_ba: bool = True,
                  device=torch.device("cuda")):
-        if cfg.sensor != Sensor.STEREO:
-            raise NotImplementedError(
-                "only Sensor.STEREO is ported; monocular and RGB-D tracking "
-                "are ROADMAP.md queue 1 item 13, 'Mono, RGB-D and "
-                "localization-only'")
         self.cfg = cfg
         self.shared = shared
         self.device = torch.device(device)
@@ -212,8 +229,19 @@ class Tracker:
         self.ref_kf = -1
         self.last_kf_frame = -1
         self.frame_id = -1
+        # localization-only mode (mbOnlyTracking) and its temporal points
         self.only_tracking = False
+        self.vo = False          # mbVO: tracking on temporal points only
+        self.last_vo_pw = None
+        self.last_vo_mask = None
+        # monocular bootstrap: the stored reference frame (feats, frame id)
+        # and the RANSAC's sample draw, (mask, n_iters, seed) -> [n, 8]
+        # indices, seeded with the frame id as the JAX package keys its
+        # PRNG; replaceable, so that a parity run can inject JAX's draws
+        self.mono_init_ref = None
+        self.draw_twoview_samples = twoview.draw_samples
         self.trajectory: list[FrameRecord] = []
+        self.n_resets = 0
         self.new_kf_slots: list[int] = []    # queue for loop-closing stage
         self.culled_kf_slots: list[int] = []  # for database erasure upstream
         # multi-agent reset hook (set by the server once it is ported)
@@ -230,14 +258,13 @@ class Tracker:
         return self._track(feats, frame_id)
 
     def track_mono(self, img, frame_id: Optional[int] = None):
-        raise NotImplementedError(
-            "monocular tracking is not ported yet: ROADMAP.md queue 1 item "
-            "13, 'Mono, RGB-D and localization-only'")
+        feats = frame_mod.extract_frame(img, self.cfg, device=self.device)
+        return self._track(feats, frame_id)
 
     def track_rgbd(self, img, depth, frame_id: Optional[int] = None):
-        raise NotImplementedError(
-            "RGB-D tracking is not ported yet: ROADMAP.md queue 1 item 13, "
-            "'Mono, RGB-D and localization-only'")
+        feats = frame_mod.extract_frame(img, self.cfg, depth_map=depth,
+                                        device=self.device)
+        return self._track(feats, frame_id)
 
     def track_features(self, feats: frame_mod.FrameFeatures,
                        frame_id: Optional[int] = None):
@@ -257,8 +284,10 @@ class Tracker:
 
         sh = self.shared
 
-        if self.state == TrackerState.LOST:
+        if self.state == TrackerState.LOST or self.only_tracking:
             q_pred, t_pred = self._predict_pose()
+
+        if self.state == TrackerState.LOST:
             # auto-reset when lost with a barely-started map (reference:
             # KeyFramesInMap() <= 5 -> full Reset): a garbage 3-KF map would
             # otherwise pin the agent to relocalization luck forever
@@ -278,13 +307,16 @@ class Tracker:
             self._record(lost=True)
             return None
 
+        if self.only_tracking:
+            return self._track_localization_only(feats, q_pred, t_pred)
+
         # the cascade: motion model -> wide retry -> ref-KF -> local map,
         # with the host's small-scalar decisions packed into a single [5]
         # vector (one device fetch here)
         tr, new_state, decision, aux = steps.track_frame_step(
             sh.state, feats, self.last_feats, self.last_frame_mp,
             self.ref_kf, self.last_q, self.last_t, self.vel_q, self.vel_t,
-            self.has_velocity, sh.n_kf > 2, self.cfg)
+            self.has_velocity, sh.n_kf_in_map(self.map_id) > 2, self.cfg)
         q_pred, t_pred, vel_q, vel_t = aux
         decision = host_fetch(decision)
         ok = bool(decision[0])
@@ -321,13 +353,83 @@ class Tracker:
         self._record(lost=False)
         return self.last_q, self.last_t
 
+    # -- localization-only mode (mbOnlyTracking) -----------------------------
+
     def set_localization_mode(self, on: bool):
-        if on:
-            raise NotImplementedError(
-                "localization-only mode (_track_localization_only, VO "
-                "points) is not ported yet: ROADMAP.md queue 1 item 13, "
-                "'Mono, RGB-D and localization-only'")
-        self.only_tracking = False
+        """ActivateLocalizationMode / DeactivateLocalizationMode: in
+        localization mode the map is frozen (no keyframes, no new map
+        points, no local BA) and tracking adds temporal VO points,
+        unprojected from the last frame's depth, to the motion model."""
+        self.only_tracking = on
+        if not on:
+            self.vo = False
+            self.last_vo_pw = None
+            self.last_vo_mask = None
+
+    def _track_localization_only(self, feats, q_pred, t_pred):
+        """One frame in localization mode. The host reads the device twice
+        on a frame that tracks: the motion model's [n_inliers,
+        n_map_inliers] in one fetch (one more when the wide-window retry
+        runs) and the local map's inlier count; _record reads once more."""
+        sh = self.shared
+        F = self.cfg.caps.max_features
+        tcfg = self.cfg.tracking
+        if self.last_vo_pw is None:
+            self.last_vo_pw = torch.zeros((F, 3), device=self.device)
+            self.last_vo_mask = torch.zeros((F,), dtype=torch.bool,
+                                            device=self.device)
+
+        def motion_model(radius_mult):
+            tr = steps.track_motion_model_vo_step(
+                sh.state, feats, self.last_feats, self.last_frame_mp,
+                self.last_vo_pw, self.last_vo_mask, q_pred, t_pred, self.cfg,
+                radius_mult=radius_mult)
+            return tr, host_fetch(torch.stack([tr.n_inliers.to(torch.int32),
+                                               tr.n_map_inliers.to(
+                                                   torch.int32)]))
+
+        tr, (n_in, n_map) = motion_model(1.0)
+        if n_in < tcfg.min_matches_motion_model:
+            tr, (n_in, n_map) = motion_model(2.0)
+        ok = n_in >= 10      # the reference's 20 counts VO matches too
+        # mbVO: fewer than 10 matches to real map points
+        self.vo = bool(n_map < 10)
+        frame_mp = tr.frame_mp
+        q_cur, t_cur = tr.q, tr.t
+        if ok and not self.vo:
+            tr2, new_state = steps.track_local_map_step(
+                sh.state, feats, tr.q, tr.t, tr.frame_mp, self.ref_kf,
+                self.cfg)
+            sh.state = new_state
+            if int(host_fetch(tr2.n_inliers)) >= \
+                    tcfg.min_inliers_track_local_map:
+                q_cur, t_cur, frame_mp = tr2.q, tr2.t, tr2.frame_mp
+            else:
+                ok = False
+
+        if not ok:
+            self.state = TrackerState.LOST
+            self.last_q, self.last_t = q_pred, t_pred
+            self.last_feats = feats
+            self.last_frame_mp = self._no_matches()
+            self.last_vo_pw = None
+            self.last_vo_mask = None
+            self._record(lost=True)
+            return None
+
+        self.state = TrackerState.OK
+        if self.last_q is not None:
+            self.vel_q, self.vel_t = se3.relative(q_cur, t_cur, self.last_q,
+                                                  self.last_t)
+            self.has_velocity = True
+        self.last_q, self.last_t = q_cur, t_cur
+        self.last_feats = feats
+        self.last_frame_mp = frame_mp
+        if self.cfg.sensor != Sensor.MONOCULAR:
+            self.last_vo_pw, self.last_vo_mask = steps.make_vo_points(
+                sh.state, feats, frame_mp, q_cur, t_cur, self.cfg)
+        self._record(lost=False)
+        return self.last_q, self.last_t
 
     # -- internals ---------------------------------------------------------
 
@@ -336,13 +438,15 @@ class Tracker:
                           dtype=torch.int32, device=self.device)
 
     def _initialize(self, feats) -> bool:
+        if self.cfg.sensor == Sensor.MONOCULAR:
+            return self._initialize_mono(feats)
         # the reference requires 500 keypoints; scaled-down test scenes use
         # smaller budgets, so gate on usable depth instead
         n_depth = int(host_fetch(torch.sum(feats.valid & (feats.depth > 0))))
         if n_depth < 100:
             return False
         sh = self.shared
-        kf_slot = sh.alloc_kf()
+        kf_slot = sh.alloc_kf(self.map_id)
         sh.state, frame_mp, n_new = steps.stereo_init_step(
             sh.state, feats, self.frame_id, self.agent, self.map_id,
             kf_slot, sh.mp_base(), self.cfg)
@@ -355,6 +459,69 @@ class Tracker:
         self.ref_kf = kf_slot
         self.last_kf_frame = self.frame_id
         self.new_kf_slots.append(kf_slot)
+        return True
+
+    def _initialize_mono(self, feats) -> bool:
+        """Two-view monocular bootstrap (MonocularInitialization +
+        SearchForInitialization): window matching against a stored
+        reference frame, the H / F RANSAC, the initial two-keyframe map with
+        median-depth normalization, and a 20-iteration global BA (K2 and
+        K3). Host reads: the feature count, the match count, the two-view
+        verdict and the point count, plus the SVDs' own waits
+        (geometry/twoview.py)."""
+        n_feat = int(host_fetch(torch.sum(feats.valid)))
+        ref = self.mono_init_ref
+        if ref is None or n_feat < 100:
+            if n_feat >= 100:
+                self.mono_init_ref = (feats, self.frame_id)
+            return False
+        ref_feats, ref_frame_id = ref
+
+        res = matchers.match_window(
+            feats, ref_feats.desc, ref_feats.valid, ref_feats.xy,
+            radius=100.0, th=self.cfg.matcher.th_low, nn_ratio=0.9)
+        _, res = matchers.resolve_conflicts(res, self.cfg.caps.max_features)
+        n_matches = int(host_fetch(torch.sum(res.ok)))
+        if n_matches < 100:
+            self.mono_init_ref = (feats, self.frame_id)  # as the reference
+            return False
+
+        F = self.cfg.caps.max_features
+        ok = res.ok
+        cur_idx = res.best_feat.long().clamp(0, F - 1)
+        samples = self.draw_twoview_samples(ok, 200, self.frame_id)
+        tv = twoview.initialize_two_view(ref_feats.xy, feats.xy[cur_idx], ok,
+                                         self.cfg.camera, samples)
+        if not bool(host_fetch(tv.ok)):
+            return False
+
+        sh = self.shared
+        kf0 = sh.alloc_kf(self.map_id)
+        kf1 = sh.alloc_kf(self.map_id)
+        sh.state, frame_mp, scale, n_pts = steps.mono_init_map_step(
+            sh.state, ref_feats, feats, tv.q, tv.t, tv.points,
+            tv.inliers & ok, torch.arange(F, dtype=torch.int32,
+                                          device=self.device),
+            cur_idx, ref_frame_id, self.frame_id, self.agent, self.map_id,
+            kf0, kf1, sh.mp_base(), self.cfg)
+        n_pts = int(host_fetch(n_pts))
+        sh.commit_mp(n_pts)
+        if n_pts < 80:
+            # as the JAX package: the two keyframes stay in the map
+            return False
+
+        # initial global BA (the reference's 20 iterations)
+        sh.state = lc.global_bundle_adjustment(sh.state, self.cfg, n_iters=20)
+
+        self.state = TrackerState.OK
+        self.last_q = sh.state.kf_q[kf1]
+        self.last_t = sh.state.kf_t[kf1]
+        self.last_feats = feats
+        self.last_frame_mp = sh.state.kf_mp[kf1]
+        self.ref_kf = kf1
+        self.last_kf_frame = self.frame_id
+        self.new_kf_slots += [kf0, kf1]
+        self.mono_init_ref = None
         return True
 
     def _predict_pose(self):
@@ -390,8 +557,8 @@ class Tracker:
         neighbour list inside the step, the new-point count and, when local
         BA ran, the cull report."""
         sh = self.shared
-        kf_slot = sh.alloc_kf()
-        run_ba = bool(self.run_local_ba and sh.n_kf >= 3)
+        kf_slot = sh.alloc_kf(self.map_id)
+        run_ba = bool(self.run_local_ba and sh.n_kf_in_map(self.map_id) >= 3)
         (sh.state, frame_mp, q_kf, t_kf, n_new,
          cull_vec) = steps.keyframe_pipeline_step(
             sh.state, feats, tr.q, tr.t, tr.frame_mp, self.frame_id,
@@ -453,6 +620,7 @@ class Tracker:
         the state as it was (a LOST tracker stays LOST after the auto-reset,
         and its own test_auto_reset_when_lost_early fails); the port follows
         the reference."""
+        self.n_resets += 1
         sh = self.shared
         st = sh.state
         mine_kf = (st.kf_agent == self.agent) & st.kf_valid
@@ -479,6 +647,7 @@ class Tracker:
         self.last_frame_mp = None
         self.has_velocity = False
         self.ref_kf = -1
+        self.mono_init_ref = None
         self.state = TrackerState.NOT_INITIALIZED
         self.new_kf_slots.clear()
         if self.on_reset is not None:

@@ -204,6 +204,9 @@ class MultiAgentServer:
         t0 = time.perf_counter()
         fusion.merge_maps(self.shared, self.multimap, match, cur_map,
                           dst_map, cfg)
+        # the host's keyframe labels follow (Map::KeyFramesInMap of the
+        # merged map counts both agents' keyframes)
+        self.shared.relabel_map(cur_map, dst_map)
         # every tracker of the merged map labels its next keyframe with it
         # (the reference's UpdateSystemMapAssociations; the JAX package
         # updates a tracker's map id only when its next keyframe is

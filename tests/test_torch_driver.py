@@ -158,7 +158,7 @@ def test_collect_synthetic_table(tmp_path):
     acc = dict(n=660, ate=0.02, ate_rmse=0.025, rpe_t=0.007,
                rpe_t_per_m=0.09, rpe_r=0.09, scale=1.0)
     meta = dict(frames=660, lost=0, relocalizations=1, loops_corrected=1,
-                keyframes_created=180, keyframes_live=80)
+                keyframes_created=180, keyframes_live=80, resets=2)
     rows = [{"trial": 0, "meta": meta, "single": acc},
             {"trial": 1, "meta": meta,
              "single": {**acc, "ate": 0.04}}]
@@ -170,7 +170,7 @@ def test_collect_synthetic_table(tmp_path):
     assert float(single.split()[1]) == pytest.approx(0.03)
     assert "trial1: ate=0.0400 ate_rmse=0.0250 rpe_t=0.0070 " \
         "rpe_t_per_m=0.0900 rpe_r=0.0900 exported=660/660 lost=0 " \
-        "relocs=1 loops=1" in text
+        "relocs=1 loops=1 resets=2" in text
     assert collect_synthetic.device_line("cpu") == "cpu"
 
 

@@ -102,5 +102,16 @@ def test_extract_frame_stereo_and_mono(stereo_inputs):
     np.testing.assert_allclose(dt[both], dj[both], rtol=1e-4)
     mono = tframe.extract_frame(left, TCFG, device="cpu")
     assert (mono.depth == -1).all() and (mono.u_right == -1).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tframe.extract_frame(left, TCFG, depth_map=left, device="cpu")
+    # an RGB-D frame (ported): the same keypoints as the mono frame, the
+    # depth map read at each rounded keypoint, u_right = x - bf / d
+    depth = np.full(left.shape, 4.0, np.float32)
+    depth[:, : left.shape[1] // 2] = 0.0          # no depth on the left half
+    rgbd = tframe.extract_frame(left, TCFG, depth_map=depth, device="cpu")
+    assert torch.equal(rgbd.xy, mono.xy) and torch.equal(rgbd.desc, mono.desc)
+    has = rgbd.valid & (torch.round(rgbd.xy[:, 0]) >= left.shape[1] // 2)
+    assert int(has.sum()) > 50
+    assert bool((rgbd.depth[has] == 4.0).all())
+    assert bool((rgbd.depth[~has] == -1.0).all())
+    np.testing.assert_allclose(rgbd.u_right[has].numpy(),
+                               (rgbd.xy[has, 0] - TCFG.camera.bf / 4.0).numpy(),
+                               rtol=0, atol=0)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of multiagent_orb_slam2_tpu_torch/ (the
-multi-agent server and its drivers among them), not chip_smoke.py and not
-the fixtures it imports imports jax or anything of
+multi-agent server and its drivers, the two-view initializer, the
+rectifier and the vocabulary trainer among them), not chip_smoke.py and
+not the fixtures it imports imports jax or anything of
 multiagent_orb_slam2_tpu."""
 import ast
 import pathlib
@@ -35,7 +36,8 @@ def test_no_jax_imports_in_port_sources():
     assert len(files) > 15
     for name in ("server/multimap.py", "server/fusion.py", "server/server.py",
                  "server/__init__.py", "drivers/generic_split_seq.py",
-                 "drivers/two_seq.py"):
+                 "drivers/two_seq.py", "geometry/twoview.py",
+                 "io/rectify.py", "drivers/train_vocab.py"):
         assert PORT / name in files, name
     offenders = [(str(f.relative_to(ROOT)), name)
                  for f in files for name in _imports(f) if _bad(name)]

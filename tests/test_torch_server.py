@@ -21,6 +21,11 @@ package's features).
   float32, so global BA is held by outcome). The stats rows: ckf counts
   live keyframes in the port; where no culled slot carries the map's label
   it equals the JAX count.
+- Fault 9 on the JAX package as shipped (its gates read the slot
+  high-water mark): its server over the same frames up to the first tick
+  at which that mark differs from a tracking agent's own live keyframes;
+  every frame tracked before it tracked by the port too, camera centres
+  within 2 mm.
 - _handle_reset: registry and consistency groups equal; the port's tracker
   restarts NOT_INITIALIZED where the JAX package's stays as it was (the
   reference's Tracking::Reset, ROADMAP.md queue 3).
@@ -95,10 +100,12 @@ def two_agents():
         js = JServer(cases.CFG, jv, run_gba=True)
         jevents = cases.run(js, jframes, windows)
     ts = TServer(cases.TCFG, tv, run_gba=True, device="cpu")
-    tevents = cases.run(ts, tframes, windows)
+    tcentres = {}
+    tevents = cases.run(ts, tframes, windows, centres=tcentres)
     return types.SimpleNamespace(js=js, ts=ts, jevents=jevents,
                                  tevents=tevents, seen=seen, jv=jv, tv=tv,
-                                 t_wc=t_wc, windows=windows)
+                                 t_wc=t_wc, windows=windows, jframes=jframes,
+                                 tcentres=tcentres)
 
 
 def test_multimap_matches_jax():
@@ -255,3 +262,46 @@ def test_handle_reset_matches_jax():
     # the deviation: Tracking::Reset restarts the tracker
     assert js.trackers[1].state == JState.LOST
     assert ts.trackers[1].state == TState.NOT_INITIALIZED
+
+
+def _gates_agree(server, windows, tick):
+    """Whether every agent that tracks in this tick past its first frame
+    has exactly as many live keyframes in its own map as the JAX package's
+    slot high-water mark: then no keyframe-count gate of the tick reads
+    differently in the two packages (a keyframe made in the tick raises
+    both counts by one)."""
+    st = server.shared.state
+    live = np.asarray(st.kf_valid)
+    kf_map = np.asarray(st.kf_map)
+    return all(
+        int(np.sum(live & (kf_map == server.multimap.map_of(a))))
+        == server.shared.n_kf
+        for a, (lo, hi) in enumerate(windows) if lo < tick < hi)
+
+
+@pytest.mark.e2e
+def test_unmodified_jax_matches_until_gates_differ(two_agents):
+    """Fault 9 on the JAX package as shipped (no OwnMapGates): its server
+    over the fixture's frames, stopped at the first tick at which the
+    gates could differ. That is tick 9: agent 0 tracks alone on ticks 0-7,
+    agent 1 initializes a map of its own at tick 8, and from tick 9 the
+    slot high-water mark counts both maps. Every frame the JAX run tracked
+    before it, the port tracked too, camera centres within 2 mm (the
+    whole-run tolerance of tests/test_torch_system.py)."""
+    c = two_agents
+    js = JServer(cases.CFG, c.jv, run_gba=True)
+    cut, jcentres = [], {}
+
+    def stop(server, tick):
+        if not _gates_agree(server, c.windows, tick):
+            cut.append(tick)
+        return bool(cut)
+
+    cases.run(js, c.jframes, c.windows, own_gates=False, stop=stop,
+              centres=jcentres)
+    assert cut == [9]
+    assert sorted(jcentres) == [(0, i) for i in range(9)] + [(1, 0)]
+    for key, want in jcentres.items():
+        got = c.tcentres[key]
+        assert want is not None and got is not None, key
+        assert np.abs(got - want).max() <= 2e-3, key

@@ -18,9 +18,14 @@ protocol, against the JAX package's.
 - write_fusion_stats: the same file as the JAX package's for the same
   stats rows.
 - The drivers run on the CUDA device unless the caller passes another: on
-  a machine without one they raise, and mono / RGB-D sub-sequences reach
-  the NotImplementedError that names ROADMAP.md queue 1 item 13.
+  a machine without one they raise. Mono and RGB-D sub-sequences run
+  through run_server on a short clip.
+- Fault 9 (ROADMAP.md queue 3): the JAX runs above count each agent's own
+  map at the two keyframe-count gates (torch_parity.OwnMapGates), as the
+  port does; the unchanged JAX driver's agent 1 loses its first frames,
+  the port's does not.
 """
+import dataclasses
 import os
 import re
 
@@ -32,6 +37,7 @@ from multiagent_orb_slam2_tpu import config as jconfig
 from multiagent_orb_slam2_tpu.drivers import common as jcommon
 from multiagent_orb_slam2_tpu.drivers import generic_split_seq as jsplit
 from multiagent_orb_slam2_tpu.drivers import two_seq as jtwo
+from multiagent_orb_slam2_tpu.server import MultiAgentServer as JServer
 from multiagent_orb_slam2_tpu_torch.analysis import (collect_synthetic,
                                                      make_synth_seq)
 from multiagent_orb_slam2_tpu_torch.config import Capacities
@@ -40,6 +46,8 @@ from multiagent_orb_slam2_tpu_torch.drivers import generic_split_seq
 from multiagent_orb_slam2_tpu_torch.drivers import two_seq
 from multiagent_orb_slam2_tpu_torch.io import datasets
 from multiagent_orb_slam2_tpu_torch.io import trajectory as ttraj
+
+from torch_parity import own_map_gates
 
 torch.set_num_threads(1)   # several test workers share few cores
 
@@ -85,7 +93,9 @@ def test_collect_synthetic_split_table(protocol):
     assert (split["frames0"], split["frames1"]) == (6, 6)
     assert (f"trial0 split: maps={split['final_maps']} "
             f"fusions={split['fusions']} "
-            f"relocs={split['relocalizations']}") in text
+            f"relocs={split['relocalizations']} "
+            f"resets={split['resets'][0]}/{split['resets'][1]}") in text
+    assert split["resets"] == [0, 0]
     for a in (0, 1):
         assert re.search(rf"trial0 agent{a}: ate=\S+ .* "
                          rf"exported={row[f'agent{a}']['n']}/6", text)
@@ -93,11 +103,26 @@ def test_collect_synthetic_split_table(protocol):
     assert row["agent0"]["n"] == 6 and row["agent1"]["n"] >= 3
 
 
+def _jax_gates_own_map(monkeypatch):
+    """The JAX drivers' trackers count their own map's keyframes at the two
+    keyframe-count gates, as the port's do (torch_parity.OwnMapGates;
+    ROADMAP.md queue 3, fault 9)."""
+    real = JServer.register_client
+
+    def register_client(self, agent):
+        return own_map_gates(self, real(self, agent))
+    monkeypatch.setattr(JServer, "register_client", register_client)
+
+
 @pytest.mark.e2e
 def test_split_driver_matches_jax(protocol, tmp_path, monkeypatch):
+    """The port's split against the JAX driver's with the reference's
+    keyframe-count gates: the same summary, the same frames exported,
+    camera centres within 2 mm, the same stats.csv."""
     work, row = protocol
     out = os.path.join(work, "split0")
     _small_settings(monkeypatch)
+    _jax_gates_own_map(monkeypatch)
     seq = os.path.join(work, "seq0")
     want = jsplit.main(["-t", "stereo_synth", "-n", "2", "-d", seq,
                         "-s", os.path.join(seq, "settings.json"),
@@ -110,11 +135,31 @@ def test_split_driver_matches_jax(protocol, tmp_path, monkeypatch):
         open(tmp_path / "stats.csv").read()
 
 
+@pytest.mark.e2e
+def test_split_gates_count_own_map(protocol, tmp_path, monkeypatch):
+    """Fault 9, the deviation asserted: the JAX package's gates read the
+    slot high-water mark, so its agent 1, which starts on a map of one
+    keyframe while agent 0 has made two, gets no reference matches, makes no
+    keyframe, loses track and resets: it exports 3 of its 6 frames. The
+    port's gates count agent 1's own map: it exports all 6. Agent 0's
+    frames are exported by both."""
+    work, row = protocol
+    _small_settings(monkeypatch)
+    seq = os.path.join(work, "seq0")
+    jsplit.main(["-t", "stereo_synth", "-n", "2", "-d", seq,
+                 "-s", os.path.join(seq, "settings.json"),
+                 "-o", str(tmp_path)])
+    got = [ttraj.read_tum(os.path.join(work, "split0", f"SLAM{a}.txt"))
+           for a in (0, 1)]
+    want = [ttraj.read_tum(str(tmp_path / f"SLAM{a}.txt")) for a in (0, 1)]
+    assert (len(want[0]), len(want[1])) == (6, 3)
+    assert (len(got[0]), len(got[1])) == (6, 6)
+    assert row["agent1"]["n"] == 6
+
+
 def _same_trajectories(got_dir, want_dir, n_frames):
-    """SLAM{a}.txt of both packages: the same frames exported (agent 1 of
-    a split loses its first frames in both: the tracker's minimum-
-    observation gate counts every agent's keyframes, ROADMAP.md queue 3),
-    camera centres within 2 mm."""
+    """SLAM{a}.txt of both packages: the same frames exported, camera
+    centres within 2 mm."""
     for a, n in enumerate(n_frames):
         got = ttraj.read_tum(os.path.join(got_dir, f"SLAM{a}.txt"))
         want = ttraj.read_tum(os.path.join(want_dir, f"SLAM{a}.txt"))
@@ -128,6 +173,7 @@ def test_two_seq_matches_jax(protocol, tmp_path, monkeypatch, capsys):
     work, _ = protocol
     seq = os.path.join(work, "seq0")
     _small_settings(monkeypatch)
+    _jax_gates_own_map(monkeypatch)
     argv = ["-t", "stereo_synth", "-d1", seq, "-d2", seq, "-s",
             os.path.join(seq, "settings.json"), "--max-frames", "6"]
     got = two_seq.main(argv + ["-o", str(tmp_path / "t"), "--device", "cpu"])
@@ -174,13 +220,75 @@ def test_drivers_default_to_cuda(tmp_path):
         two_seq.main(argv + ["-d1", str(tmp_path), "-d2", str(tmp_path)])
 
 
+def _write_tum_rgbd(root, q_wc, t_wc, cam):
+    """A TUM-layout RGB-D clip of the corridor (rgb.txt, depth.txt, 8-bit
+    grey and 16-bit depth PNGs at the TUM factor 5000, 0 where there is no
+    depth or it is beyond the 16-bit range), written from the renderer's
+    left image and exact depth: test data for datasets.load_tum_rgbd."""
+    import cv2
+    from multiagent_orb_slam2_tpu_torch.io.synthetic import BoxScene
+    scene = BoxScene(seed=0, z_far=30.0)
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    rgb, dep = [], []
+    for i in range(len(q_wc)):
+        left, _, depth = scene.render_stereo(cam, q_wc[i], t_wc[i])
+        d = np.nan_to_num(depth, nan=0.0, posinf=0.0) * 5000.0
+        d = np.where((d > 0) & (d < 65535), d, 0).astype(np.uint16)
+        ts = f"{i / 10.0:.6f}"
+        cv2.imwrite(os.path.join(root, "rgb", f"{i}.png"),
+                    np.clip(left, 0, 255).astype(np.uint8))
+        cv2.imwrite(os.path.join(root, "depth", f"{i}.png"), d)
+        rgb.append(f"{ts} rgb/{i}.png")
+        dep.append(f"{ts} depth/{i}.png")
+    for name, rows in (("rgb.txt", rgb), ("depth.txt", dep)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("# written by the test\n" + "\n".join(rows) + "\n")
+    return datasets.load_tum_rgbd(str(root))
+
+
 @pytest.mark.parametrize("kind", ["mono_kitti", "rgbd_tum"])
 def test_unported_sensors_raise(kind, tmp_path):
+    """Mono and RGB-D sub-sequences, which raised NotImplementedError
+    before the port had them, now run through run_server: two agents on 12
+    frames of the corridor (6 an agent) at the small capacities. RGB-D: a
+    TUM-layout clip of the first 12 frames' left images and the renderer's
+    depth; every frame of both agents is tracked. Mono: the left images of
+    every third frame (the corridor's 3.6 cm a frame give too little
+    parallax for two views); each agent keeps its first frame as the
+    two-view reference, initializes from a later one and ends tracking on
+    its own map (an agent that loses its young map resets and initializes
+    again on a fresh map id, as the server does)."""
+    n = 12
     q, t = make_synth_seq.loop_trajectory(660, 1.0, 24.0, seed=0)
-    make_synth_seq.write_sequence(str(tmp_path), 0, q[:2], t[:2],
-                                  make_synth_seq.camera())
-    seq = datasets.load_synth_stereo(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        generic_split_seq.run_server(
-            seq.split(2), kind, str(tmp_path / "settings.json"), "",
-            str(tmp_path / "out"), "cpu")
+    step = 3 if kind == "mono_kitti" else 1
+    q, t = q[:step * n:step], t[:step * n:step]
+    cam = make_synth_seq.camera()
+    make_synth_seq.write_sequence(str(tmp_path / "seq"), 0, q, t, cam)
+    if kind == "mono_kitti":
+        seq = datasets.load_synth_stereo(str(tmp_path / "seq"))
+        seq = datasets.Sequence([dataclasses.replace(it, right=None)
+                                 for it in seq.items])
+    else:
+        seq = _write_tum_rgbd(tmp_path / "tum", q, t, cam)
+    assert len(seq) == n
+    out = tmp_path / "out"
+    with pytest.MonkeyPatch.context() as mp:
+        _small_settings(mp)
+        server, summary = generic_split_seq.run_server(
+            seq.split(2), kind, str(tmp_path / "seq" / "settings.json"), "",
+            str(out), "cpu")
+    assert summary["final_maps"] == 2 and summary["fusions"] == 0
+    st = server.shared.state
+    for a in (0, 1):
+        rows = ttraj.read_tum(str(out / f"SLAM{a}.txt"))
+        tracker = server.trackers[a]
+        assert tracker.state == 1
+        if kind == "rgbd_tum":
+            assert len(rows) == n // 2
+        else:
+            assert tracker.trajectory[0].lost and len(rows) >= 2
+        mine = (st.kf_agent == a) & st.kf_valid
+        assert int(mine.sum()) >= 2
+        assert set(st.kf_map[mine].tolist()) == {tracker.map_id}
+    assert server.trackers[0].map_id != server.trackers[1].map_id

@@ -1,7 +1,7 @@
-"""Host-side behaviour of the port: System facade, what raises
-NotImplementedError, slot bookkeeping, point compaction, reset, the small
-tensor helpers, and the tracker with local bundle adjustment against the JAX
-tracker."""
+"""Host-side behaviour of the port: System facade, the paths later slices
+ported (each checked in place of the NotImplementedError it raised), slot
+bookkeeping, point compaction, reset, the small tensor helpers, and the
+tracker with local bundle adjustment against the JAX tracker."""
 import dataclasses
 import inspect
 
@@ -35,7 +35,8 @@ def test_config_from_dict_equals_jax_config():
                                   "localization", "mono_sensor", "rgbd",
                                   "track_mono", "save_map"])
 def test_unported_paths_raise(what, tmp_path):
-    """Nothing that waits for a later slice degrades silently."""
+    """Every path that once raised NotImplementedError for a later slice,
+    now ported: each case checks the ported behaviour."""
     shared = ttr.SharedMap(TCFG, device="cpu")
     if what == "save_map":
         # ported: a checkpoint of a map (two keyframes, points) restores
@@ -97,19 +98,53 @@ def test_unported_paths_raise(what, tmp_path):
         assert not bool(system.loop_closer.db.active[slot])
         assert system.shared.free_kf == [slot]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        if what == "localization":
-            ttr.Tracker(TCFG, shared, run_local_ba=False,
-                        device="cpu").set_localization_mode(True)
-        elif what == "mono_sensor":
-            ttr.Tracker(TCFG.replace(sensor=tconfig.Sensor.MONOCULAR), shared,
-                        run_local_ba=False, device="cpu")
-        elif what == "rgbd":
-            tsys.System(TCFG, None, enable_loop_closing=False,
-                        device="cpu").track_rgbd(None, None)
+    frames, (q_wc, t_wc) = sequence(12)
+    if what == "localization":
+        # ported: a map of two frames stays as it is while a third frame is
+        # tracked in localization mode; leaving the mode drops the VO state
+        tracker = ttr.Tracker(TCFG, shared, device="cpu")
+        for i, (left, right) in enumerate(frames[:2]):
+            tracker.track_stereo(left, right, frame_id=i)
+        before = shared.state
+        tracker.set_localization_mode(True)
+        assert tracker.track_stereo(*frames[2], frame_id=2) is not None
+        assert tracker.last_vo_mask is not None
+        for name, a in before._asdict().items():
+            if name not in ("mp_visible", "mp_found"):
+                assert torch.equal(getattr(shared.state, name), a), name
+        tracker.set_localization_mode(False)
+        assert tracker.last_vo_pw is None and not tracker.only_tracking
+    elif what == "mono_sensor":
+        # ported: a monocular tracker keeps its first frame as the two-view
+        # reference and makes no keyframe from it
+        mcfg = TCFG.replace(sensor=tconfig.Sensor.MONOCULAR)
+        tracker = ttr.Tracker(mcfg, shared, run_local_ba=False, device="cpu")
+        assert tracker.track_mono(frames[0][0], frame_id=0) is None
+        assert tracker.state == ttr.TrackerState.NOT_INITIALIZED
+        assert tracker.mono_init_ref[1] == 0 and shared.n_kf == 0
+    elif what == "rgbd":
+        # ported: the first RGB-D frame makes the first keyframe, a map
+        # point for every feature with depth
+        from multiagent_orb_slam2_tpu_torch.io.synthetic import BoxScene
+        depth = BoxScene(seed=7, z_far=40.0).render_stereo(
+            TCFG.camera, q_wc[0], t_wc[0])[2]
+        system = tsys.System(TCFG.replace(sensor=tconfig.Sensor.RGBD), None,
+                             enable_loop_closing=False, device="cpu")
+        assert system.track_rgbd(frames[0][0], depth, frame_id=0) is not None
+        st = system.shared.state
+        assert system.shared.n_kf == 1 and bool(st.kf_valid[0])
+        assert system.shared.n_mp == int((st.kf_depth[0] > 0).sum()) > 100
+    else:
+        # ported: System.track_mono stores the reference frame, then
+        # initializes from two views or keeps waiting, never raising
+        system = tsys.System(TCFG.replace(sensor=tconfig.Sensor.MONOCULAR),
+                             None, enable_loop_closing=False, device="cpu")
+        assert system.track_mono(frames[0][0], frame_id=0) is None
+        out = system.track_mono(frames[3][0], frame_id=3)
+        if out is None:
+            assert system.tracker.mono_init_ref is not None
         else:
-            tsys.System(TCFG, None, enable_loop_closing=False,
-                        device="cpu").track_mono(None)
+            assert system.shared.n_kf == 2
 
 
 def test_default_device_is_cuda_and_never_falls_back():

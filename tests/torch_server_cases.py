@@ -15,12 +15,13 @@ from multiagent_orb_slam2_tpu.config import (SlamConfig, OrbConfig, Capacities,
 from multiagent_orb_slam2_tpu.geometry.camera import Intrinsics
 from multiagent_orb_slam2_tpu.io.synthetic import BoxScene, corridor_trajectory
 from multiagent_orb_slam2_tpu.ops import frame as jframe
+from multiagent_orb_slam2_tpu.server import MultiAgentServer as JServer
 from multiagent_orb_slam2_tpu.vocab import bow as jbow
 
 from multiagent_orb_slam2_tpu_torch import convert
 from multiagent_orb_slam2_tpu_torch.io import trajectory as ttraj
 
-from torch_parity import threads, torch_feats_from_jax
+from torch_parity import own_map_gates, threads, torch_feats_from_jax
 
 CAM = Intrinsics(fx=230.0, fy=230.0, cx=160.0, cy=120.0, bf=115.0,
                  width=320, height=240)
@@ -61,10 +62,16 @@ def scenario(case):
             t_wc, windows)
 
 
-def run(server, frames, windows):
+def run(server, frames, windows, own_gates=True, stop=None, centres=None):
     """Drive the agents round robin as tests/test_server.py does, the
     server draining the queues after every tick (two intra-op threads for
-    the port). Returns the fusion events."""
+    the port). With own_gates the JAX server's trackers count their own
+    map's keyframes at the keyframe-count gates, as the port's do
+    (torch_parity.OwnMapGates; ROADMAP.md queue 3, fault 9). stop(server,
+    tick), where given, ends the run before the first tick for which it is
+    true; centres, where given, gets each tracked frame's camera centre as
+    its tracker returned it, None for a frame it did not track, keyed
+    (agent, frame_id). Returns the fusion events."""
     events = []
     real = server._fuse
 
@@ -79,13 +86,26 @@ def run(server, frames, windows):
 
     server._fuse = fuse
     trackers = [server.register_client(a) for a in range(len(windows))]
+    if own_gates and isinstance(server, JServer):
+        trackers = [own_map_gates(server, t) for t in trackers]
     with threads(2):
         for i in range(len(frames)):
+            if stop is not None and stop(server, i):
+                break
             for a, (lo, hi) in enumerate(windows):
                 if lo <= i < hi:
-                    trackers[a].track_features(frames[i], frame_id=i - lo)
+                    pose = trackers[a].track_features(frames[i],
+                                                      frame_id=i - lo)
+                    if centres is not None:
+                        centres[a, i - lo] = None if pose is None else \
+                            _centre(*pose)
             server.process_new_keyframes()
     return events
+
+
+def _centre(q, t):
+    q, t = (np.asarray(x, np.float64) for x in (q, t))
+    return -_quat_matrix(q).T @ t
 
 
 def keyframe_ate(fields, windows, t_wc):
