@@ -24,6 +24,14 @@ over 100 frames of the same corridor (keyframe database, loop detection,
 local and global BA, as a user builds the System); a loop detected and
 corrected with global BA on a drifted 110-keyframe ring at (K, P, M) =
 (128, 32768, 24); global BA at the benchmark's size (256, 65536, 8). Then
+scale-out on torch.distributed: that global BA point-sharded
+(``parallel/dist_ba``) over 1 rank (NCCL, this process), 2 and 4 ranks
+(spawned processes sharing the card on gloo; NCCL with one rank per card
+where there are several cards), and one ``parallel/multichip`` step on the
+(2, 2) mesh of 4 ranks (4 agents' pose problems in one batched pose-kernel
+launch a rank, the BA's points over the points axis, the front end on 4
+corridor frames), each rank's wall time, ms per LM iteration and the
+all-reduce's bytes and ms printed (``scale-out:``). Then
 trial 0 of the accuracy protocol: the 660-frame loop corridor of
 ``analysis/make_synth_seq`` (seed 0, 512x288, rendered once by a pool of
 processes); its first 120 frames through the single-agent driver
@@ -40,15 +48,19 @@ corridor's last local BA and on the first post-fusion global BA. It fails
 (exit code other than 0) when there is no CUDA device, when a kernel does
 not build, launch or agree, when a path never launched its kernels, or
 when a trajectory, the keyframe database, a loop correction, a
-relocalization, a fusion or a checkpoint is wrong. Needs no network; the
-processes it starts to render the corridor end with it.
+relocalization, a fusion, a checkpoint or a sharded solve is wrong, or when
+a spawned rank fails or outlasts its time. Needs no network; the
+processes it starts to render the corridor and to run the ranks end with
+it.
 
 Output, in order: the card's name and power limit, build seconds and ptxas
 lines, one line per kernel with the comparison at every shape, each path's
 numbers (``RGB-D path:``, ``mono path:``, ``mono tracked frame`` /
 ``mono local BA`` kernel lines, ``localization path:``,
 ``rectification:`` among them), the ring's and the benchmark-size global BA's numbers with their
-K2 / K3 checks, the corridor's (``corridor:``), the kidnap's and the
+K2 / K3 checks, the scale-out phase's (``scale-out:``, K1 on the agents'
+batch, K2 on one rank's shard, K3 on the all-reduced system), the
+corridor's (``corridor:``), the kidnap's and the
 checkpoint's lines and the K2 / K3 checks on the corridor's local BA, the
 split phase's (``split:``, ``split checkpoint:``) and the K2 / K3 checks on
 the post-fusion global BA (``fusion GBA``), one JSON object
@@ -80,6 +92,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from multiagent_orb_slam2_tpu_torch.config import (Capacities, LoopConfig,
@@ -97,9 +110,12 @@ from multiagent_orb_slam2_tpu_torch.io import rectify as rectify_mod
 from multiagent_orb_slam2_tpu_torch.io import trajectory as traj_mod
 from multiagent_orb_slam2_tpu_torch.mapstate import checkpoint as ckpt_mod
 from multiagent_orb_slam2_tpu_torch.ops import frame as frame_mod
+from multiagent_orb_slam2_tpu_torch.ops import matchers, orb
 from multiagent_orb_slam2_tpu_torch.optim import ba as ba_mod
 from multiagent_orb_slam2_tpu_torch.optim import ba_kernels, ba_prep, pcg
 from multiagent_orb_slam2_tpu_torch.optim import pose_opt
+from multiagent_orb_slam2_tpu_torch.parallel import (dist_ba, multichip,
+                                                     multihost)
 from multiagent_orb_slam2_tpu_torch.runtime import loop_closing as lc_mod
 from multiagent_orb_slam2_tpu_torch.runtime import reloc as reloc_mod
 from multiagent_orb_slam2_tpu_torch.runtime import steps as steps_mod
@@ -278,10 +294,10 @@ def summarize(prof, n: int, wall_ms: float, per: str) -> dict:
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def pose_problem(B: int, N: int, seed: int, valid: float = 0.9):
-    """Seeded batch of pose problems on the card: 10 % gross outliers, mixed
-    stereo / mono, a share `valid` of the slots unmasked (at random places),
-    information by level."""
+def pose_problem(B: int, N: int, seed: int, valid: float = 0.9, cam=CAM):
+    """Seeded batch of pose problems on the card, seen through `cam`: 10 %
+    gross outliers, mixed stereo / mono, a share `valid` of the slots
+    unmasked (at random places), information by level."""
     rng = np.random.default_rng(seed)
     pw = np.stack([rng.uniform(-10, 10, (B, N)), rng.uniform(-3, 3, (B, N)),
                    rng.uniform(4, 40, (B, N))], -1)
@@ -292,9 +308,9 @@ def pose_problem(B: int, N: int, seed: int, valid: float = 0.9):
     qv = q[:, None, 1:]
     u1 = np.cross(qv, pw)
     pc = pw + 2.0 * (q[:, None, :1] * u1 + np.cross(qv, u1)) + t[:, None]
-    u = CAM.fx * pc[..., 0] / pc[..., 2] + CAM.cx
-    v = CAM.fy * pc[..., 1] / pc[..., 2] + CAM.cy
-    obs = np.stack([u, v, u - CAM.bf / pc[..., 2]], -1) \
+    u = cam.fx * pc[..., 0] / pc[..., 2] + cam.cx
+    v = cam.fy * pc[..., 1] / pc[..., 2] + cam.cy
+    obs = np.stack([u, v, u - cam.bf / pc[..., 2]], -1) \
         + rng.normal(0, 0.5, (B, N, 3))
     n_out = N // 10
     obs[:, :n_out, :2] += rng.uniform(20, 80, (B, n_out, 2)) \
@@ -651,18 +667,25 @@ def reduced_system(terms, sc, lam):
     from K2's terms, as optim/ba._build_and_solve_fast forms them."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    S_blocks, dsum = ba_mod._assemble(terms, sc)
+    S_acc, dsum = ba_mod._assemble(terms, sc)
     torch.cuda.synchronize()
     assembly_ms = (time.perf_counter() - t0) * 1e3
-    K = S_blocks.shape[0]
+    return system_of_sums(S_acc, dsum, sc, lam), assembly_ms
+
+
+def system_of_sums(S_acc, dsum, sc, lam):
+    """(S [D, D], rhs [D], Dinv [K, 6, 6]) of the damped reduced camera
+    system from the raw sums of optim/ba._assemble (one shard's, or all
+    shards' all-reduced)."""
+    K = sc.idx.shape[0]
+    S_blocks, dsum = ba_mod._pose_sums(S_acc, dsum, K)
     Hcc = dsum[:21].t()[:, sc.triu]
     S = ba_mod._reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
     rhs = torch.where(sc.free[:, None], dsum[21:27].t() - dsum[27:33].t(),
                       torch.zeros_like(dsum[21:27].t())).reshape(-1)
     eye6 = torch.eye(6, device="cuda")
     return (S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K).contiguous(), rhs,
-            torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse), \
-        assembly_ms
+            torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse)
 
 
 def pcg_bound_ms(D, n_iters, warm):
@@ -1519,6 +1542,19 @@ def check_gba_kernels(label, prob, cam, chunk):
     print(f"{label}: two solves of 10 LM iterations bit-identical, cost "
           f"{float(a.cost):.6g}")
     del a, b
+    row, system = check_k2(label, prob, cam, chunk)
+    print(f"{label}, pcg on its reduced camera system:")
+    k3 = check_pcg_kernel({6 * K: system})
+    return row, next(r for r in k3 if r["warm_start"])
+
+
+def check_k2(label, prob, cam, chunk):
+    """K2 on a problem's first LM build: against its plain version (1e-3 of
+    each output's scale, two launches bit-identical), timed alone beside its
+    first design, with its bound on this workspace. Returns (K2 row, the
+    build's reduced camera system (S, rhs, Dinv))."""
+    K = prob.q.shape[0]
+    P, M = prob.obs_kf.shape
     sc = ba_mod._prepare_solve(prob, chunk)
     lam = torch.full((1,), 1e-4, device="cuda")
     args = (prob.q, prob.t, prob.pw, lam, cam, D2M, D2S, True)
@@ -1546,9 +1582,7 @@ def check_gba_kernels(label, prob, cam, chunk):
     print(f"{label}, ba_prep: " + json.dumps(row))
     del sc, kept, p32, k, again
     torch.cuda.empty_cache()
-    print(f"{label}, pcg on its reduced camera system:")
-    k3 = check_pcg_kernel({6 * K: system})
-    return row, next(r for r in k3 if r["warm_start"])
+    return row, system
 
 
 def bench_gba():
@@ -1598,6 +1632,366 @@ def bench_gba():
           f"g2o global BA on KITTI 00 took {G2O_GBA_MS_KITTI00} ms on a CPU "
           "(BASELINE.md), a yardstick, no gate")
     return report, prob, cam, launches
+
+
+# ---------------------------------------------------------------------------
+# scale-out: the point-sharded BA and the (agents, points) step
+# ---------------------------------------------------------------------------
+
+SCALE_OUT_WORLDS = (2, 4)      # spawned ranks that share the card, on gloo
+SCALE_OUT_ITERS = 10
+# final cost at 2 / 4 ranks (and of the step's BA) against 1 rank, relative;
+# the all-reduced sums against one rank's, of their scale (PERF.md, set
+# before the phase's first chip run)
+SCALE_OUT_COST_RTOL = 1e-3
+SCALE_OUT_SUMS_TOL = 1e-4
+SCALE_OUT_TIMEOUT_S = 300      # the ranks of one world size, start to end
+SCALE_OUT_AGENTS, SCALE_OUT_AGENT_OBS, SCALE_OUT_SEED = 4, 2048, 4242
+# each agent's frame of the rendered corridor; it is matched to the frame
+# before it
+FRONTEND_FRAMES = (10, 20, 30, 40)
+
+
+def count_reduces(mesh):
+    """Count the calls and bytes of mesh.all_reduce, and keep the first
+    buffer it sums that is more than a scalar (the first build's sums)."""
+    stats = {"calls": 0, "bytes": 0, "first": None}
+    real = mesh.all_reduce
+
+    def all_reduce(buf, axis):
+        out = real(buf, axis)
+        stats["calls"] += 1
+        stats["bytes"] += buf.numel() * buf.element_size()
+        if stats["first"] is None and buf.numel() > 1:
+            stats["first"] = out.clone()
+        return out
+    mesh.all_reduce = all_reduce
+    return stats
+
+
+def allreduce_ms(group, numel, device, reps=10):
+    """Median ms of one all-reduce of `numel` float32 on `device` over the
+    group, on the host's clock between two synchronizations (gloo stages a
+    CUDA tensor through the host)."""
+    buf = torch.zeros(numel, device=device)
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def scale_out_rank(rank, world, device, fields, step):
+    """One rank of the scale-out phase (world 1 in the main process, else a
+    spawned process): distributed_ba_solve of the benchmark's problem on a
+    one-axis mesh (a warm-up solve; a counted, timed solve; a second solve
+    that must equal it bit for bit; the all-reduce of its sums timed
+    alone). With `step` (the inputs of the (2, 2) step) also one
+    multichip_step and one multichip_frontend on the (agents, points) mesh.
+    Returns numpy arrays and numbers."""
+    cam = ba_problem.BENCH_CAM
+    prob = convert.ba_problem_from_numpy(fields, device)
+    mesh = dist_ba.make_mesh(world)
+    shard = dist_ba.shard_problem(prob, rank, world)
+    del prob
+    stats = count_reduces(mesh)
+
+    def solve(n_iters=SCALE_OUT_ITERS):
+        return dist_ba.distributed_ba_solve(shard, cam, mesh, n_iters=n_iters,
+                                            chunk=8192)
+
+    solve()
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    stats.update(calls=0, bytes=0, first=None)
+    t0 = time.perf_counter()
+    a = solve()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    calls, nbytes, first = stats["calls"], stats["bytes"], stats["first"]
+    b = solve()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    ar_ms = allreduce_ms(mesh.groups["points"], first.numel(), device)
+    pw = dist_ba.gather_points(a[2], mesh.groups["points"])
+    out = {"rank": rank, "q": a[0].cpu().numpy(), "t": a[1].cpu().numpy(),
+           "pw": pw.cpu().numpy() if rank == 0 else None,
+           "sums": first.cpu().numpy() if rank == 0 else None,
+           "wall_ms": wall_ms, "launches": launches,
+           "allreduce_calls": calls, "allreduce_bytes": nbytes,
+           "allreduce_ms": ar_ms, "bit_identical_rerun": same,
+           "finite": all(bool(torch.isfinite(x).all()) for x in a)}
+    del a, b, shard
+    if step is None:
+        return out
+
+    mesh2 = multichip.make_2d_mesh(world)
+    q0, t0_, obs = pose_problem(SCALE_OUT_AGENTS, SCALE_OUT_AGENT_OBS,
+                                seed=SCALE_OUT_SEED, cam=cam)
+    prob = convert.ba_problem_from_numpy(fields, device)
+    shard = dist_ba.shard_problem(prob, mesh2.coords["points"],
+                                  mesh2.shape["points"])
+    del prob
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = multichip.multichip_step(q0, t0_, obs, shard, cam, mesh2)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = launch_counts()
+    ba_pw = dist_ba.gather_points(res[5], mesh2.groups["points"])
+    imgs = torch.tensor(step["imgs"], device=device)
+    pd = torch.tensor(step["prev_desc"], device=device)
+    pv = torch.tensor(step["prev_valid"], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    desc, valid, n_matches = multichip.multichip_frontend(imgs, pd, pv,
+                                                          CFG.orb, mesh2)
+    torch.cuda.synchronize()
+    out["step"] = {
+        "coords": (mesh2.coords["agents"], mesh2.coords["points"]),
+        "q": res[0].cpu().numpy(), "t": res[1].cpu().numpy(),
+        "n_inl": res[2].cpu().numpy(), "ba_q": res[3].cpu().numpy(),
+        "ba_t": res[4].cpu().numpy(),
+        "ba_pw": ba_pw.cpu().numpy() if rank == 0 else None,
+        "step_ms": step_ms, "launches": step_launches,
+        "desc": desc.cpu().numpy(), "valid": valid.cpu().numpy(),
+        "n_matches": n_matches.cpu().numpy(),
+        "frontend_ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+def total_cost(prob, cam, q, t, pw):
+    """The robust cost of a whole problem at (q, t, pw) (K2 in cost-only
+    mode), for holding solves of different shardings against each other."""
+    ws = ba_prep.prepare(prob.obs_kf, prob.obs_uvr, prob.obs_inv_sigma2,
+                         prob.obs_stereo, prob.obs_mask, prob.point_valid,
+                         prob.q.shape[0])
+    dev = prob.q.device
+    out = ba_prep.prep_terms(ws, torch.as_tensor(q, device=dev),
+                             torch.as_tensor(t, device=dev),
+                             torch.as_tensor(pw, device=dev), None, cam, D2M,
+                             D2S, True, cost_only=True)
+    return float(torch.sum(out.cost))
+
+
+def frontend_inputs(frames):
+    """The (2, 2) step's front-end inputs from the rendered corridor: each
+    agent's left image of FRONTEND_FRAMES and the descriptors of the frame
+    before it (ORB at the path's width: 2000 features over 8 levels)."""
+    prev = [orb.extract(torch.tensor(frames[i - 1][0], device="cuda"),
+                        CFG.orb) for i in FRONTEND_FRAMES]
+    return {"imgs": np.stack([np.asarray(frames[i][0], np.float32)
+                              for i in FRONTEND_FRAMES]),
+            "prev_desc": torch.stack([k.desc for k in prev]).cpu().numpy(),
+            "prev_valid": torch.stack([k.valid for k in prev]).cpu().numpy()}
+
+
+def scale_out(step_inputs):
+    """The scale-out phase on the benchmark's problem (build_problem():
+    K = 256, P = 65536, M = 8; 10 LM iterations, chunk 8192): the
+    point-sharded distributed_ba_solve at world size 1 (NCCL, this
+    process), 2 and 4 (spawned processes sharing this card on gloo, which
+    carries CUDA tensors through the host; NCCL refuses two ranks on one
+    device), and on NCCL with one rank per card where there are two or more
+    cards; then one multichip_step on the (2, 2) mesh of the 4 ranks (4
+    agents of 2048 observations, one batched K1 launch a rank, the BA's
+    points over the points axis) and multichip_frontend on 4 corridor
+    frames at 1241x376, 2000 features.
+
+    Holds (else exits): every rank's solve finite, bit-identical to its
+    rerun, K2 and K3 launched; q and t bit-equal across the ranks; the
+    final cost at 2 and 4 ranks within SCALE_OUT_COST_RTOL of 1 rank's
+    (by outcome: CG in float32 is chaotic); the all-reduced sums of the
+    first build at 2 ranks within SCALE_OUT_SUMS_TOL of 1 rank's, of their
+    scale; the step: K1 launched once a rank, the agents' q and t within
+    1e-5 of one batched launch here and inlier counts equal, its BA's cost
+    within SCALE_OUT_COST_RTOL of a 2-iteration solve at 1 rank, every
+    output bit-equal across the 4 ranks, the front end's descriptors,
+    valid flags and match counts equal to the same extraction and matching
+    here. K1 is held against its plain version on the agents' batch, K2 on
+    shard 0 of 2, K3 on the all-reduced system of 2 ranks. Returns
+    (report, K1 row, K2 row, K3 row)."""
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    fields, cam = ba_problem.build_problem()
+    prob = convert.ba_problem_from_numpy(fields, "cuda")
+    cost0 = total_cost(prob, cam, prob.q, prob.t, prob.pw)
+
+    # world size 1: NCCL in this process
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        runs = {"1": [scale_out_rank(0, 1, torch.device("cuda", 0), fields,
+                                     None)]}
+        two = dist_ba.distributed_ba_solve(prob, cam, dist_ba.make_mesh(1),
+                                           n_iters=2, chunk=8192)
+        cost_two = total_cost(prob, cam, *two)
+        del two
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    spawn_s = {}
+    for w in SCALE_OUT_WORLDS:
+        t0 = time.perf_counter()
+        runs[str(w)] = multihost.run_ranks(
+            scale_out_rank, w, (fields, step_inputs if w == 4 else None),
+            backend="gloo", device="cuda", timeout=SCALE_OUT_TIMEOUT_S)
+        spawn_s[str(w)] = time.perf_counter() - t0
+    if n_cards >= 2:
+        w = min(n_cards, 4)
+        runs[f"nccl_{w}"] = multihost.run_ranks(
+            scale_out_rank, w, (fields, None), backend="nccl",
+            device="cuda", timeout=SCALE_OUT_TIMEOUT_S)
+
+    problems = []
+    ref = runs["1"][0]
+    cost_ref = total_cost(prob, cam, ref["q"], ref["t"], ref["pw"])
+    sums_ref = torch.tensor(ref["sums"], device="cuda")
+    rows = {}
+    for key, ranks in runs.items():
+        r0 = ranks[0]
+        cost = total_cost(prob, cam, r0["q"], r0["t"], r0["pw"])
+        row = {
+            "ranks": len(ranks), "backend": "gloo" if key in ("2", "4")
+            else "nccl",
+            "ms_per_lm_iteration": max(r["wall_ms"] for r in ranks)
+            / SCALE_OUT_ITERS,
+            "rank_wall_ms": [r["wall_ms"] for r in ranks],
+            "allreduce_bytes_per_iteration": r0["sums"].nbytes,
+            "allreduce_calls_per_solve": r0["allreduce_calls"],
+            "allreduce_bytes_per_solve": r0["allreduce_bytes"],
+            "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+            "cost": cost, "cost_rel_diff_vs_1": abs(cost - cost_ref)
+            / cost_ref,
+            "max_abs_dq_vs_1": float(np.abs(r0["q"] - ref["q"]).max()),
+            "max_abs_dt_vs_1": float(np.abs(r0["t"] - ref["t"]).max()),
+            "max_abs_dpw_vs_1": float(np.abs(r0["pw"] - ref["pw"]).max()),
+            "launches": r0["launches"]}
+        if key != "1":
+            s = torch.tensor(r0["sums"], device="cuda")
+            row["sums_diff_vs_1_of_scale"] = float(
+                (s - sums_ref).abs().max() / sums_ref.abs().max())
+            if row["sums_diff_vs_1_of_scale"] > SCALE_OUT_SUMS_TOL:
+                problems.append(f"{key} ranks: all-reduced sums differ from "
+                                f"1 rank's by {row['sums_diff_vs_1_of_scale']}"
+                                f" of scale (tolerance {SCALE_OUT_SUMS_TOL})")
+        rows[key] = row
+        if not all(r["finite"] and r["bit_identical_rerun"] for r in ranks):
+            problems.append(f"{key} ranks: a solve is not finite or differs "
+                            "from its rerun")
+        if not all(np.array_equal(r["q"], r0["q"]) and
+                   np.array_equal(r["t"], r0["t"]) for r in ranks):
+            problems.append(f"{key} ranks: replicated q / t differ across "
+                            "ranks")
+        if any(r["launches"]["ba_prep"] == 0 or r["launches"]["pcg"] == 0
+               for r in ranks):
+            problems.append(f"{key} ranks: K2 or K3 never launched")
+        if row["cost_rel_diff_vs_1"] > SCALE_OUT_COST_RTOL:
+            problems.append(f"{key} ranks: final cost {cost} against "
+                            f"{cost_ref} at 1 rank (tolerance "
+                            f"{SCALE_OUT_COST_RTOL} relative)")
+
+    # the (2, 2) step against one batched launch and extraction here
+    steps = [r["step"] for r in runs["4"]]
+    s0 = steps[0]
+    q0, t0, obs = pose_problem(SCALE_OUT_AGENTS, SCALE_OUT_AGENT_OBS,
+                               seed=SCALE_OUT_SEED, cam=cam)
+    kq, kt, _, kn = pose_opt.pose_optimize(q0, t0, obs, cam,
+                                           OptimizerConfig())
+    front_ref = []
+    for i in range(len(FRONTEND_FRAMES)):
+        kp = orb.extract(torch.tensor(step_inputs["imgs"][i], device="cuda"),
+                         CFG.orb)
+        m = matchers.match_brute(
+            kp.desc, kp.valid,
+            torch.tensor(step_inputs["prev_desc"][i], device="cuda"),
+            torch.tensor(step_inputs["prev_valid"][i], device="cuda"),
+            th=64, nn_ratio=0.9)
+        front_ref.append((kp.desc.cpu().numpy(), kp.valid.cpu().numpy(),
+                          int(m.ok.sum())))
+    step_cost = total_cost(prob, cam, s0["ba_q"], s0["ba_t"], s0["ba_pw"])
+    step_row = {
+        "mesh": [2, 2], "agents": SCALE_OUT_AGENTS,
+        "observations": SCALE_OUT_AGENT_OBS,
+        "rank_step_ms": [s["step_ms"] for s in steps],
+        "rank_frontend_ms": [s["frontend_ms"] for s in steps],
+        "launches_rank0": s0["launches"],
+        "max_abs_dq_vs_batch": float(np.abs(s0["q"] - kq.cpu().numpy()).max()),
+        "max_abs_dt_vs_batch": float(np.abs(s0["t"] - kt.cpu().numpy()).max()),
+        "bit_equal_to_batch": bool(
+            np.array_equal(s0["q"], kq.cpu().numpy())
+            and np.array_equal(s0["t"], kt.cpu().numpy())),
+        "n_inliers": s0["n_inl"].tolist(),
+        "ba_cost": step_cost, "ba_cost_1_rank_2_iters": cost_two,
+        "ba_cost_rel_diff": abs(step_cost - cost_two) / cost_two,
+        "n_matches": s0["n_matches"].tolist(),
+        "keypoints": s0["valid"].sum(axis=1).tolist()}
+    if sorted(s["coords"] for s in steps) != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        problems.append("step: mesh coordinates "
+                        f"{[s['coords'] for s in steps]}")
+    if any(s["launches"]["pose_opt"] != 1 or s["launches"]["ba_prep"] == 0
+           or s["launches"]["pcg"] == 0 for s in steps):
+        problems.append("step: K1 not launched once a rank, or K2 / K3 "
+                        f"never: {[s['launches'] for s in steps]}")
+    if max(step_row["max_abs_dq_vs_batch"],
+           step_row["max_abs_dt_vs_batch"]) > 1e-5 or not np.array_equal(
+               s0["n_inl"], kn.cpu().numpy()):
+        problems.append("step: the agents' poses differ from one batched "
+                        "launch")
+    if step_row["ba_cost_rel_diff"] > SCALE_OUT_COST_RTOL:
+        problems.append(f"step: BA cost {step_cost} against {cost_two}")
+    for k in ("q", "t", "n_inl", "ba_q", "ba_t", "desc", "valid",
+              "n_matches"):
+        if not all(np.array_equal(s[k], s0[k]) for s in steps):
+            problems.append(f"step: {k} differs across the ranks")
+    for i, (d, v, n) in enumerate(front_ref):
+        if not (np.array_equal(s0["desc"][i], d)
+                and np.array_equal(s0["valid"][i], v)
+                and int(s0["n_matches"][i]) == n):
+            problems.append(f"front end, agent {i}: descriptors, valid flags "
+                            "or match count differ from extraction here")
+    report = {"K": prob.q.shape[0], "P": prob.obs_kf.shape[0],
+              "M": prob.obs_kf.shape[1], "n_iters": SCALE_OUT_ITERS,
+              "device_count": n_cards, "cost_initial": cost0,
+              "worlds": rows, "spawn_and_run_s": spawn_s,
+              "step": step_row}
+    print("scale-out: " + json.dumps(report))
+    if n_cards < 2:
+        print(f"scale-out: {n_cards} CUDA device: NCCL with one rank per "
+              "card not run")
+    print("scale-out: ranks on one card share its SMs, so ms per LM "
+          "iteration at 2 and 4 ranks measures the collective's cost, not a "
+          "scale-out speedup")
+    if problems:
+        raise SystemExit("scale-out failed: " + "; ".join(problems))
+
+    # K1 on the agents' batch, K2 on one rank's shard, K3 on the all-reduced
+    # system of 2 ranks (PCG from zero, as the distributed solve starts it)
+    k1 = check_pose_on("scale-out agents", q0, t0, obs, OptimizerConfig(),
+                       cam=cam)
+    k2, _ = check_k2("scale-out shard 0 of 2",
+                     dist_ba.shard_problem(prob, 0, 2), cam, 8192)
+    sc = ba_mod._prepare_solve(dist_ba.shard_problem(prob, 0, 4), 8192)
+    K = prob.q.shape[0]
+    KK = K + 1
+    sums = torch.tensor(runs["2"][0]["sums"], device="cuda")
+    n_s = (6 * KK) ** 2
+    system = system_of_sums(sums[:n_s].view(6 * KK, 6 * KK),
+                            sums[n_s:n_s + 33 * KK].view(33, KK), sc,
+                            torch.full((1,), 1e-4, device="cuda"))
+    del sc
+    print("scale-out, pcg on the all-reduced system of 2 ranks:")
+    k3 = next(r for r in check_pcg_kernel({6 * K: system})
+              if not r["warm_start"])
+    print(f"scale-out: {time.perf_counter() - t_phase:.1f} s")
+    return report, k1, k2, k3
 
 
 def prep_real_maps(solves, n_iters=(5, 10)):
@@ -2437,35 +2831,36 @@ def drive_rgbd(frames, depths, t_gt):
     return launches
 
 
-def check_pose_on(label, q0, t0, obs, cfg):
-    """K1 against its plain version on one captured pose problem (1e-5 in q
-    and t, inlier labels equal on 99 %, counts within 2; two launches
-    bit-identical), timed alone, as one wrapper call and as the plain
-    version, with its bound on this problem."""
-    k = pose_opt.pose_optimize(q0, t0, obs, CAM, cfg)
+def check_pose_on(label, q0, t0, obs, cfg, cam=CAM):
+    """K1 against its plain version on one captured pose problem or a batch
+    of them (1e-5 in q and t, inlier labels equal on 99 %, counts within 2;
+    two launches bit-identical), timed alone, as one wrapper call and as
+    the plain version, with its bound on this problem."""
+    k = pose_opt.pose_optimize(q0, t0, obs, cam, cfg)
     torch.cuda.synchronize()
-    p = pose_opt._pose_optimize_plain(q0, t0, obs, CAM, cfg)
+    p = pose_opt._pose_optimize_plain(q0, t0, obs, cam, cfg)
     err = max(float((k[0] - p[0]).abs().max()),
               float((k[1] - p[1]).abs().max()))
     inl_eq = float((k[2] == p[2]).float().mean())
-    again = pose_opt.pose_optimize(q0, t0, obs, CAM, cfg)
+    again = pose_opt.pose_optimize(q0, t0, obs, cam, cfg)
     same = all(torch.equal(a, b) for a, b in zip(k, again))
     if not (err <= 1e-5 and inl_eq >= 0.99 and same
             and int((k[3] - p[3]).abs().max()) <= 2):
         raise SystemExit(f"pose_opt kernel on {label}: max |dq|,|dt| = "
                          f"{err:.3e} (tolerance 1e-5), inlier masks equal on "
                          f"{inl_eq:.4f} (need 0.99), bit-identical: {same}")
-    run = pose_opt._bind_launch(q0, t0, obs, CAM, cfg)[0]
+    run = pose_opt._bind_launch(q0, t0, obs, cam, cfg)[0]
     n_valid = int(obs.mask.sum())
-    bound_ms, bound_by = pose_opt_bound(n_valid, 1, obs.mask.shape[-1], cfg)
-    row = {"on": label, "n_valid": n_valid,
+    B = q0.shape[0] if q0.dim() == 2 else 1
+    bound_ms, bound_by = pose_opt_bound(n_valid, B, obs.mask.shape[-1], cfg)
+    row = {"on": label, "B": B, "n_valid": n_valid,
            "stereo_valid": int((obs.is_stereo & obs.mask).sum()),
            "max_err": err, "inlier_agreement": inl_eq,
            "kernel_ms": min(device_ms(run), device_ms(run)),
            "wrapper_ms": cuda_ms(
-               lambda: pose_opt.pose_optimize(q0, t0, obs, CAM, cfg), 20),
+               lambda: pose_opt.pose_optimize(q0, t0, obs, cam, cfg), 20),
            "plain_ms": cuda_ms(
-               lambda: pose_opt._pose_optimize_plain(q0, t0, obs, CAM, cfg),
+               lambda: pose_opt._pose_optimize_plain(q0, t0, obs, cam, cfg),
                5),
            "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"{label}, pose_opt: " + json.dumps(row))
@@ -2823,6 +3218,7 @@ def main():
     loop_launches, loop_report_, solves = drive_path(frames, t_gt,
                                                      local_ba=True,
                                                      vocab=vocab)
+    step_inputs = frontend_inputs(frames)
     del solves, frames
     torch.cuda.empty_cache()
     ring_report, ring_prob, ring_launches = drive_ring(vocab)
@@ -2835,6 +3231,15 @@ def main():
     bench_k2, bench_k3 = check_gba_kernels("bench GBA", bench_prob,
                                            bench_cam, 8192)
     del bench_prob
+    torch.cuda.empty_cache()
+
+    # 5b. scale-out: the benchmark's global BA point-sharded over 1, 2 and 4
+    # ranks (torch.distributed), and one multichip_step with the front end
+    # on the (2, 2) mesh; K1, K2 and K3 held on their problems
+    scale, so_k1, so_k2, so_k3 = scale_out(step_inputs)
+    so_launches = {w: scale["worlds"][w]["launches"] for w in ("1", "2", "4")}
+    so_launches["step"] = scale["step"]["launches_rank0"]
+    del step_inputs
     torch.cuda.empty_cache()
 
     # 6. the 660-frame loop corridor (trial 0), rendered once: its first
@@ -2897,6 +3302,10 @@ def main():
         **{f"{key}_mono_pose": mono_k1[key]
            for key in ("max_err", "kernel_ms", "wrapper_ms", "plain_ms",
                        "bound_ms", "bound_by", "n_valid")},
+        "launches_scale_out_step": so_launches["step"]["pose_opt"],
+        **{f"{key}_scale_out_agents": so_k1[key]
+           for key in ("B", "max_err", "kernel_ms", "wrapper_ms", "plain_ms",
+                       "bound_ms", "bound_by", "n_valid")},
         "threads": probe["threads"],
         "blocks_per_pose": probe["blocks_per_pose"],
     }, {
@@ -2930,6 +3339,11 @@ def main():
         **gba_keys(lba_k2, "corridor_lba"),
         **gba_keys(fusion_k2, "fusion_gba"),
         **gba_keys(mono_k2, "mono_lba"),
+        "launches_scale_out": so_launches["1"]["ba_prep"],
+        "launches_scale_out_2_ranks": so_launches["2"]["ba_prep"],
+        "launches_scale_out_4_ranks": so_launches["4"]["ba_prep"],
+        "launches_scale_out_step": so_launches["step"]["ba_prep"],
+        **gba_keys(so_k2, "scale_out_shard"),
     }, {
         "name": "pcg", "route": "cuda",
         "source": "multiagent_orb_slam2_tpu_torch/csrc/pcg.cu",
@@ -2958,6 +3372,11 @@ def main():
         **gba_keys(lba_k3, "corridor_lba"),
         **gba_keys(fusion_k3, "fusion_gba"),
         **gba_keys(mono_k3, "mono_lba"),
+        "launches_scale_out": so_launches["1"]["pcg"],
+        "launches_scale_out_2_ranks": so_launches["2"]["pcg"],
+        "launches_scale_out_4_ranks": so_launches["4"]["pcg"],
+        "launches_scale_out_step": so_launches["step"]["pcg"],
+        **gba_keys(so_k3, "scale_out_reduced"),
     }]
     print(f"script: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,15 @@ def load_settings(path: str, sensor: int) -> SlamConfig:
     return from_yaml_dict(d, sensor=sensor)
 
 
+def metric_depth(cfg: SlamConfig) -> SlamConfig:
+    """cfg for depth maps that the dataset loaders have already scaled to
+    metres (``io/datasets._imread_depth`` divides by the dataset's factor):
+    depth_map_factor 1, so that neither the dataset's factor nor a settings
+    file's DepthMapFactor is applied a second time. The reference applies
+    the factor once (mDepthMapFactor)."""
+    return cfg.replace(depth_map_factor=1.0)
+
+
 def _parse_opencv_yaml(path: str) -> dict:
     """Minimal parser for the reference's 'Key.Sub: value' YAML files
     (e.g. Examples/Stereo/KITTI00-02.yaml, EuRoC.yaml). Handles scalar

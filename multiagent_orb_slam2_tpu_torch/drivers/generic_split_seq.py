@@ -32,8 +32,8 @@ def run_server(seqs, sensor_type: str, settings: str, vocab_path: str,
     """Track one sequence per agent under one server, round robin, and write
     SLAM{a}.txt and stats.csv to `out`. Returns (server, summary)."""
     device = torch.device(device)
-    cfg = common.load_settings(settings, common.SENSOR_OF[
-        sensor_type.split("_")[0]])
+    sensor = common.SENSOR_OF[sensor_type.split("_")[0]]
+    cfg = common.metric_depth(common.load_settings(settings, sensor))
     vocab = common.get_vocabulary(vocab_path, seqs, cfg, device=device)
     rect = common.get_rectifier(settings, device)
 

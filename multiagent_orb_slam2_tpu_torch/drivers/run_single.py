@@ -45,10 +45,8 @@ def run(argv=None):
     args = parse_args(argv)
     device = torch.device(args.device)
     sensor = common.SENSOR_OF[args.type.split("_")[0]]
-    cfg = common.load_settings(args.settings, sensor)
+    cfg = common.metric_depth(common.load_settings(args.settings, sensor))
     seq = datasets.LOADERS[args.type](args.data)
-    if args.type == "rgbd_tum":
-        cfg = cfg.replace(depth_map_factor=1.0 / seq.depth_factor)
     vocab = common.get_vocabulary(args.vocab, [seq], cfg, device=device)
     rect = common.get_rectifier(args.settings, device)
     sys_ = System(cfg, vocab, enable_loop_closing=not args.no_loop_closing,

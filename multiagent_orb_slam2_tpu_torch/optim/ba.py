@@ -275,13 +275,13 @@ def _prepare_solve(prob: BAProblem, chunk: int) -> _SolveConsts:
 
 
 def _assemble(terms: ba_prep.PrepTerms, sc: _SolveConsts):
-    """Reduce the per-observation terms onto keyframes: the cross blocks
-    S_blocks [K, K, 6, 6], and the [33, K] sums of Ht / bt / Ybp. Full-width
-    one-hot products, chunked over points; every product has a fixed
-    summation order. The terms are point-major, so every operand is a view
-    of them."""
+    """Reduce the per-observation terms onto keyframes: the raw sums S_acc
+    [6 (K + 1), 6 (K + 1)] of the cross blocks and dsum [33, K + 1] of
+    Ht / bt / Ybp, whose pose K collects the inactive slots (``_pose_sums``
+    drops it). Full-width one-hot products, chunked over points; every
+    product has a fixed summation order. The terms are point-major, so every
+    operand is a view of them."""
     n_chunks, cp, M, KK = sc.onehot.shape
-    K = KK - 1
     dev = terms.Wb.device
     S_acc = torch.zeros((6 * KK, 6 * KK), dtype=torch.float32, device=dev)
     dsum = torch.zeros((33, KK), dtype=torch.float32, device=dev)
@@ -295,14 +295,36 @@ def _assemble(terms: ba_prep.PrepTerms, sc: _SolveConsts):
         V = torch.bmm(terms.Wb[:, sl].transpose(0, 1), Of)
         # rows (point, coordinate), columns (twist component, pose)
         S_acc += U.reshape(cp * 3, 6 * KK).t() @ V.reshape(cp * 3, 6 * KK)
-    S_blocks = S_acc.reshape(6, KK, 6, KK).permute(1, 3, 0, 2)[:K, :K]
-    return S_blocks, dsum[:, :K]
+    return S_acc, dsum
+
+
+def _pose_sums(S_acc, dsum, K: int):
+    """The cross blocks S_blocks [K, K, 6, 6] and the [33, K] sums of the K
+    poses from ``_assemble``'s raw sums."""
+    KK = K + 1
+    return (S_acc.reshape(6, KK, 6, KK).permute(1, 3, 0, 2)[:K, :K],
+            dsum[:, :K])
+
+
+def _reduce_sums(reduce, S_acc, dsum, cost):
+    """S_acc, dsum and the cost of one shard of points summed over every
+    shard: packed into one flat float32 buffer, so that `reduce` (an
+    all-reduce that returns the summed buffer) makes one collective, then
+    unpacked as views of the result."""
+    n_s, n_d = S_acc.numel(), dsum.numel()
+    buf = reduce(torch.cat([S_acc.reshape(-1), dsum.reshape(-1),
+                            cost.reshape(1)]))
+    return (buf[:n_s].view(S_acc.shape), buf[n_s:n_s + n_d].view(dsum.shape),
+            buf[n_s + n_d])
 
 
 def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
-                          delta2_s, use_huber, pcg_iters, x0):
+                          delta2_s, use_huber, pcg_iters, x0, reduce=None):
     """One LM build and solve. Returns (dc [K, 6], dp [P, 3], robust cost at
-    the build point)."""
+    the build point). x0 [K, 6] warm-starts PCG (None: from zero). With
+    `reduce`, the problem is one shard of the points (poses replicated):
+    the shard's sums and cost are all-reduced before the reduced camera
+    system is formed, and the cost returned is the total."""
     K = q.shape[0]
     ws = sc.ws
     P, M = ws.kf.shape
@@ -310,7 +332,10 @@ def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
                                use_huber)
     cost0 = torch.sum(terms.cost)
 
-    S_blocks, dsum = _assemble(terms, sc)
+    S_acc, dsum = _assemble(terms, sc)
+    if reduce is not None:
+        S_acc, dsum, cost0 = _reduce_sums(reduce, S_acc, dsum, cost0)
+    S_blocks, dsum = _pose_sums(S_acc, dsum, K)
     Hcc = dsum[:21].t()[:, sc.triu]                           # [K, 6, 6]
     bc = dsum[21:27].t()
     rhs_pose = dsum[27:33].t()
@@ -321,7 +346,8 @@ def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
     eye6 = torch.eye(6, dtype=torch.float32, device=q.device)
     Dinv = torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse
     dc = pcg.pcg_solve(S_dense, rhs.reshape(-1), Dinv, n_iters=pcg_iters,
-                       x0=x0.reshape(-1)).reshape(K, 6)
+                       x0=None if x0 is None else x0.reshape(-1)
+                       ).reshape(K, 6)
     dc = torch.where(sc.free[:, None], dc, torch.zeros_like(dc))
 
     # back-substitution
@@ -351,13 +377,35 @@ def ba_solve_fast(prob: BAProblem, cam: Intrinsics, n_iters: int = 10,
     the assembly is always full width and exact, and `band_ov` is 0. `chunk`
     bounds how many points one assembly product takes.
     """
-    dev = prob.q.device
     sc = _prepare_solve(prob, chunk)
+    q, t, pw = _lm_solve(sc, prob, cam, n_iters, use_huber, chi2_mono,
+                         chi2_stereo, pcg_iters, warm_start=True)
+    out = ba_prep.prep_terms(sc.ws, q, t, pw, None, cam, chi2_mono,
+                             chi2_stereo, use_huber, cost_only=True)
+    dev = prob.q.device
+    return BAResult(q=q, t=t, pw=pw, cost=torch.sum(out.cost),
+                    obs_chi2=out.chi2,
+                    n_iters=_int_scalar(n_iters, dev),
+                    band_ov=_int_scalar(0, dev))
+
+
+def _lm_solve(sc: _SolveConsts, prob: BAProblem, cam: Intrinsics,
+              n_iters: int, use_huber: bool, chi2_mono: float,
+              chi2_stereo: float, pcg_iters: int, warm_start: bool,
+              reduce=None):
+    """The LM loop of ``ba_solve_fast``; returns (q, t, pw). warm_start:
+    each PCG solve starts from the previous step (else from zero). With
+    `reduce` (an all-reduce that returns the summed tensor), `prob` is one
+    shard of the points: every build's sums and cost and the final cost are
+    summed over the shards, so the replicated poses take the same steps on
+    every shard."""
+    dev = prob.q.device
 
     def cost_fn(q, t, pw):
         out = ba_prep.prep_terms(sc.ws, q, t, pw, None, cam, chi2_mono,
                                  chi2_stereo, use_huber, cost_only=True)
-        return torch.sum(out.cost), out.chi2
+        cost = torch.sum(out.cost)
+        return cost if reduce is None else reduce(cost.reshape(1))[0]
 
     # Deferred-accept LM: one observation pass per iteration. The build at
     # the current parameters yields the robust cost there, which doubles as
@@ -372,7 +420,7 @@ def ba_solve_fast(prob: BAProblem, cam: Intrinsics, n_iters: int = 10,
     for _ in range(n_iters):
         dc, dp, cost_here = _build_and_solve_fast(
             sc, q, t, pw, cam, lam, chi2_mono, chi2_stereo, use_huber,
-            pcg_iters, dc_prev)
+            pcg_iters, dc_prev if warm_start else None, reduce)
         improved = cost_here <= cost_prev
         lam = torch.where(improved, lam * 0.5, lam * 5.0).clamp(1e-8, 1e4)
         q_step, t_step, pw_step = _apply_step(q, t, pw, dc, dp)
@@ -388,14 +436,6 @@ def ba_solve_fast(prob: BAProblem, cam: Intrinsics, n_iters: int = 10,
         q, t, pw, dc_prev = q_next, t_next, pw_next, dc
 
     # final accept check for the last applied step
-    cost_final, _ = cost_fn(q, t, pw)
-    take_last = cost_final <= cost_prev
-    q = torch.where(take_last, q, qb)
-    t = torch.where(take_last, t, tb)
-    pw = torch.where(take_last, pw, pwb)
-
-    cost, chi2 = cost_fn(q, t, pw)
-    return BAResult(q=q, t=t, pw=pw, cost=cost,
-                    obs_chi2=chi2,
-                    n_iters=_int_scalar(n_iters, dev),
-                    band_ov=_int_scalar(0, dev))
+    take_last = cost_fn(q, t, pw) <= cost_prev
+    return (torch.where(take_last, q, qb), torch.where(take_last, t, tb),
+            torch.where(take_last, pw, pwb))

@@ -1,8 +1,10 @@
 """The port stands alone: no module of multiagent_orb_slam2_tpu_torch/ (the
 multi-agent server and its drivers, the two-view initializer, the
-rectifier and the vocabulary trainer among them), not chip_smoke.py and
-not the fixtures it imports imports jax or anything of
-multiagent_orb_slam2_tpu."""
+rectifier, the vocabulary trainer, the scale-out package, the visualizer
+and the native loader among them), not chip_smoke.py and not the fixtures
+it and the spawned ranks import imports jax or anything of
+multiagent_orb_slam2_tpu. Importing the scale-out package starts no
+process group."""
 import ast
 import pathlib
 import subprocess
@@ -32,12 +34,18 @@ def test_no_jax_imports_in_port_sources():
     # chip_smoke.py and the jax-free fixtures it imports on the card
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_loop_cases.py",
-        ROOT / "tests" / "torch_ba_cases.py"]
+        ROOT / "tests" / "torch_ba_cases.py",
+        ROOT / "tests" / "torch_dist_cases.py",
+        ROOT / "tests" / "torch_multihost_worker.py"]
     assert len(files) > 15
     for name in ("server/multimap.py", "server/fusion.py", "server/server.py",
                  "server/__init__.py", "drivers/generic_split_seq.py",
                  "drivers/two_seq.py", "geometry/twoview.py",
-                 "io/rectify.py", "drivers/train_vocab.py"):
+                 "io/rectify.py", "drivers/train_vocab.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/multihost.py", "parallel/dist_ba.py",
+                 "parallel/multichip.py", "parallel/dryrun.py",
+                 "viz/__init__.py", "viz/plot.py", "io/native_loader.py"):
         assert PORT / name in files, name
     offenders = [(str(f.relative_to(ROOT)), name)
                  for f in files for name in _imports(f) if _bad(name)]
@@ -55,6 +63,20 @@ def test_importing_the_port_loads_no_jax():
             "assert not bad, bad[:5]\n"
             "import torch\n"
             "assert torch.backends.cuda.matmul.allow_tf32 is False\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(ROOT),
+                       env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_importing_parallel_starts_no_process_group():
+    code = ("import torch.distributed as dist\n"
+            "import multiagent_orb_slam2_tpu_torch.parallel as par\n"
+            "from multiagent_orb_slam2_tpu_torch.parallel import (dist_ba, "
+            "dryrun, mesh, multichip, multihost)\n"
+            "assert not dist.is_initialized()\n"
+            "assert par.distributed_ba_solve is dist_ba.distributed_ba_solve\n"
+            "assert par.make_mesh is dist_ba.make_mesh\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=str(ROOT),
                        env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
