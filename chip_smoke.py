@@ -44,11 +44,20 @@ between two agents under the multi-agent server
 stretch revisits agent 0's start; each agent's trajectory is evaluated and
 the fused map checkpointed. The Schur preparation (K2) and PCG (K3) are
 held against their plain versions on both global BAs' own problems, on the
-corridor's last local BA and on the first post-fusion global BA. It fails
+corridor's last local BA and on the first post-fusion global BA. On three
+of those problems, which ``ba_solve_fast`` bands by default (the
+benchmark-size global BA, the corridor's last local BA at (512, 65536, 24)
+and the post-fusion global BA), the banded assembly is held against full
+width (``band:`` lines: one build's sums, whole solves' cost, two banded
+solves bit-identical; out-of-band points, the overflow pass's capacity, the
+window bases, the assembly's and a solve's ms and peak MB), and on the
+benchmark's problem with 2000 points made to span half the trajectory,
+which runs the overflow pass. It fails
 (exit code other than 0) when there is no CUDA device, when a kernel does
 not build, launch or agree, when a path never launched its kernels, or
 when a trajectory, the keyframe database, a loop correction, a
-relocalization, a fusion, a checkpoint or a sharded solve is wrong, or when
+relocalization, a fusion, a checkpoint, a sharded solve or a banded
+assembly is wrong, or when
 a spawned rank fails or outlasts its time. Needs no network; the
 processes it starts to render the corridor and to run the ranks end with
 it.
@@ -63,7 +72,9 @@ batch, K2 on one rank's shard, K3 on the all-reduced system), the
 corridor's (``corridor:``), the kidnap's and the
 checkpoint's lines and the K2 / K3 checks on the corridor's local BA, the
 split phase's (``split:``, ``split checkpoint:``) and the K2 / K3 checks on
-the post-fusion global BA (``fusion GBA``), one JSON object
+the post-fusion global BA (``fusion GBA``), a ``band:`` line after each
+of the bench, corridor local BA and fusion K2 / K3 checks and a ``band,
+summary:`` line, one JSON object
 ``{"kernels": [...]}``, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +92,7 @@ the Schur preparation is timed again, alone, on the workspaces that path's
 local bundle adjustments built (``ba_prep, real maps``).
 """
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -677,15 +689,8 @@ def system_of_sums(S_acc, dsum, sc, lam):
     """(S [D, D], rhs [D], Dinv [K, 6, 6]) of the damped reduced camera
     system from the raw sums of optim/ba._assemble (one shard's, or all
     shards' all-reduced)."""
-    K = sc.idx.shape[0]
-    S_blocks, dsum = ba_mod._pose_sums(S_acc, dsum, K)
-    Hcc = dsum[:21].t()[:, sc.triu]
-    S = ba_mod._reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
-    rhs = torch.where(sc.free[:, None], dsum[21:27].t() - dsum[27:33].t(),
-                      torch.zeros_like(dsum[21:27].t())).reshape(-1)
-    eye6 = torch.eye(6, device="cuda")
-    return (S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K).contiguous(), rhs,
-            torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse)
+    S, rhs, Dinv = ba_mod._camera_system(S_acc, dsum, sc, lam)
+    return S.contiguous(), rhs.reshape(-1), Dinv
 
 
 def pcg_bound_ms(D, n_iters, warm):
@@ -752,6 +757,10 @@ def check_pcg_cluster_sizes():
 def check_pcg_kernel(systems):
     """K3 against ba_kernels.pcg_solve on reduced camera systems taken from
     real builds, D = 48, 384, 1536 and 3072, with and without a warm start.
+    The plain version does the arithmetic of the path D takes: on the grid
+    path each row of S p summed in float64 and rounded once, as the kernel
+    has done there since its float32 rows proved too noisy (``rows_f64``);
+    on the cluster path in float32.
     After 2 iterations the two agree within 1e-4 of x's scale (the same
     arithmetic in another summation order; r - alpha A p cancels, which
     amplifies the last bit of alpha). After 32 iterations they are two
@@ -772,12 +781,14 @@ def check_pcg_kernel(systems):
     Reported beside them, not held:
     both 2-iteration results against a float64 CG of the same iterations,
     the plain version's own spread after 2 iterations under four of those
-    reorderings (the size of float32's ordering noise on that system; the
-    grid path sums each row of S p in float64 because on a global BA's
-    system that noise exceeded the 1e-4), the residual of the float64
-    solution rounded to float32, and on the grid path the 2-iteration error
-    and the time of its earlier design, which summed those rows in float32
-    (`pcg_launch_grid_f32rows`). Two launches are bit-identical. D <= 924
+    reorderings (the size of its ordering noise on that system; with
+    float32 rows that noise exceeded the 1e-4 on a global BA's system,
+    which is why the grid path sums its rows in float64), the residual of the float64
+    solution rounded to float32, and on the grid path the kernel's
+    2-iteration distance to the plain version with float32 rows, and the
+    2-iteration error and the time of its earlier design, which summed
+    those rows in float32 (`pcg_launch_grid_f32rows`), against that plain
+    version. Two launches are bit-identical. D <= 924
     goes through the cluster path (S resident in shared memory: 48 and 384
     here, 768 on the loop-closing phase's global BA), larger D through the
     grid path (1536 and 3072 here, 1536 on the global BA at the benchmark's
@@ -794,6 +805,11 @@ def check_pcg_kernel(systems):
 
     for D in sorted(systems):
         S, rhs, Dinv = systems[D]
+        path = "cluster" if lib.pcg_cluster_blocks(D) > 0 else "grid"
+        if path != ("cluster" if D <= 924 else "grid"):
+            raise SystemExit(f"pcg took the {path} path at D={D}")
+        plain = functools.partial(ba_kernels.pcg_solve,
+                                  rows_f64=path == "grid")
         S64 = S.double()
         exact = torch.linalg.solve(S64, rhs.double())
         norm = float(torch.sqrt(exact @ (S64 @ exact)))
@@ -817,17 +833,17 @@ def check_pcg_kernel(systems):
             its result in the original order."""
             idx = (perm[:, None] * 6 + torch.arange(
                 6, device="cuda")[None]).reshape(-1)
-            xr = ba_kernels.pcg_solve(
+            xr = plain(
                 S[idx][:, idx].contiguous(), rhs[idx], Dinv[perm], n_iters,
                 None if warm is None else warm[idx])
             return torch.empty_like(xr).index_copy_(0, idx, xr)
 
         for warm in (None, 0.5 * exact.float()):
             k2 = pcg.pcg_solve(S, rhs, Dinv, 2, warm)
-            p2 = ba_kernels.pcg_solve(S, rhs, Dinv, 2, warm)
+            p2 = plain(S, rhs, Dinv, 2, warm)
             xk = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
             torch.cuda.synchronize()
-            xp = ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm)
+            xp = plain(S, rhs, Dinv, 32, warm)
             err2, err = scale_err(k2, p2), scale_err(xk, xp)
             # after 2 iterations: each against a float64 CG of the same 2
             # iterations, and the plain version against itself with the pose
@@ -870,9 +886,6 @@ def check_pcg_kernel(systems):
                                  "version: " + json.dumps(row))
             if not torch.equal(xk, again):
                 raise SystemExit("pcg kernel is not deterministic")
-            path = "cluster" if lib.pcg_cluster_blocks(D) > 0 else "grid"
-            if path != ("cluster" if D <= 924 else "grid"):
-                raise SystemExit(f"pcg took the {path} path at D={D}")
             row["path"] = path
             ms_v1 = wrapper_ms_v1 = None
             run_new = pcg._bind_launch(S, rhs, Dinv, 32, warm)[0]
@@ -889,9 +902,13 @@ def check_pcg_kernel(systems):
                 t_grid = [device_ms(run_grid)]
             else:
                 # the earlier design, each row of S p summed in float32:
-                # its 2-iteration error, and its time in turns with this one
+                # its 2-iteration error against the plain version with
+                # float32 rows (beside the kernel's), and its time in turns
+                # with this one
+                p2_f32 = ba_kernels.pcg_solve(S, rhs, Dinv, 2, warm)
+                row["err_2_iters_vs_plain_f32_rows"] = scale_err(k2, p2_f32)
                 k2_f32 = solve_grid_f32(S, rhs, Dinv, 2, warm)
-                row["err_2_iters_f32_rows"] = scale_err(k2_f32, p2)
+                row["err_2_iters_f32_rows"] = scale_err(k2_f32, p2_f32)
                 row["err_2_iters_vs_f64_f32_rows"] = scale_err(
                     k2_f32.double(), ba_kernels.pcg_solve(
                         S64, rhs.double(), Dinv.double(), 2,
@@ -914,8 +931,7 @@ def check_pcg_kernel(systems):
                 row["ms_f32_rows"] = min(t_f32)
             wrapper_ms = cuda_ms(
                 lambda: pcg.pcg_solve(S, rhs, Dinv, 32, warm), 20)
-            plain_ms = cuda_ms(
-                lambda: ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm), 5)
+            plain_ms = cuda_ms(lambda: plain(S, rhs, Dinv, 32, warm), 5)
             bound_ms, bound_by = pcg_bound_ms(D, 32, warm is not None)
             row.update({"kernel_ms": min(t_new), "ms_v1": ms_v1,
                         "wrapper_ms": wrapper_ms,
@@ -1067,10 +1083,10 @@ def drive_path(frames, t_gt, local_ba: bool, vocab=None):
                           torch.cuda.max_memory_allocated() - mem["kept"])
         torch.cuda.reset_peak_memory_stats()
 
-    def keeping_prepare_solve(prob, chunk):
+    def keeping_prepare_solve(prob, *a, **kw):
         span_peak()
-        sc = real_prepare_solve(prob, chunk)
-        solves.append((sc.ws._replace(buffers=None), prob.q, prob.t, prob.pw))
+        sc = real_prepare_solve(prob, *a, **kw)
+        solves.append((sc.ws._replace(buffers=None), prob.q, prob.t, sc.pw))
         return sc
 
     def solve_then_keep(*a, **kw):
@@ -1549,15 +1565,18 @@ def check_gba_kernels(label, prob, cam, chunk):
 
 
 def check_k2(label, prob, cam, chunk):
-    """K2 on a problem's first LM build: against its plain version (1e-3 of
-    each output's scale, two launches bit-identical), timed alone beside its
-    first design, with its bound on this workspace. Returns (K2 row, the
-    build's reduced camera system (S, rhs, Dinv))."""
+    """K2 on a problem's first LM build, on the workspace the path prepares
+    (the points sorted where ba_solve_fast bands the assembly): against its
+    plain version (1e-3 of each output's scale, two launches
+    bit-identical), timed alone beside its first design, with its bound on
+    this workspace. Returns (K2 row, the build's reduced camera system (S,
+    rhs, Dinv))."""
     K = prob.q.shape[0]
     P, M = prob.obs_kf.shape
-    sc = ba_mod._prepare_solve(prob, chunk)
+    sc = ba_mod._prepare_solve(prob, chunk,
+                               ba_mod._resolve_band("auto", K, P))
     lam = torch.full((1,), 1e-4, device="cuda")
-    args = (prob.q, prob.t, prob.pw, lam, cam, D2M, D2S, True)
+    args = (prob.q, prob.t, sc.pw, lam, cam, D2M, D2S, True)
     k = ba_prep.prep_terms(sc.ws, *args)
     torch.cuda.synchronize()
     kept = ba_prep.PrepTerms(*[a.clone() for a in k])
@@ -1583,6 +1602,112 @@ def check_k2(label, prob, cam, chunk):
     del sc, kept, p32, k, again
     torch.cuda.empty_cache()
     return row, system
+
+
+# the band: phase's gates (PERF.md, set before its first chip run): one
+# build's raw sums banded against full width from the same K2 terms, of
+# their scale; the final cost of whole 10-iteration solves, relative
+# (tests/test_ba_fast.py's bound)
+BAND_SUMS_TOL = 1e-5
+BAND_COST_RTOL = 1e-3
+
+
+def spanning_problem(prob, n):
+    """The problem with the last observation slot of its first n points
+    moved half the trajectory away (a loop closure's span): those points
+    leave every window of the banded assembly, so its overflow pass runs
+    (the path's own problems keep their keyframes within one window)."""
+    kf = prob.obs_kf.clone()
+    K = prob.q.shape[0]
+    kf[:n, -1] = (kf[:n, -1] + K // 2) % K
+    return prob._replace(obs_kf=kf)
+
+
+def check_band(label, prob, cam, chunk):
+    """The banded assembly on one of the path's problems, which
+    ba_solve_fast bands by default (band="auto"): one build's raw sums
+    (S_acc, dsum) banded against full width from the same K2 terms within
+    BAND_SUMS_TOL of their scale; whole 10-iteration solves banded against
+    full width, final cost within BAND_COST_RTOL (q and t reported); two
+    banded solves bit-identical. Reports the out-of-band count, the
+    overflow pass's capacity, the window bases in use, the assembly's ms
+    banded and full width (CUDA events), ms per solve and peak MB of each.
+    Returns the row."""
+    K = prob.q.shape[0]
+    P, M = prob.obs_kf.shape
+    band = ba_mod._resolve_band("auto", K, P)
+    torch.cuda.synchronize()
+    sc = ba_mod._prepare_solve(prob, chunk, band)
+    if sc.band is None:
+        raise SystemExit(f"band: {label} at (K, P, M) = ({K}, {P}, {M}) is "
+                         f"not banded (band {band}, out of band "
+                         f"{int(sc.band_ov)})")
+    lam = torch.full((1,), 1e-4, device=prob.q.device)
+    terms = ba_prep.prep_terms(sc.ws, prob.q, prob.t, sc.pw, lam, cam, D2M,
+                               D2S, True)
+    full = sc._replace(onehot=ba_mod._full_onehot(sc.ws, chunk, K),
+                       band=None)
+    S_b, d_b = ba_mod._assemble(terms, sc)
+    S_f, d_f = ba_mod._assemble(terms, full)
+    sums_err = max(scale_err(S_b, S_f), scale_err(d_b, d_f))
+    again = ba_mod._assemble(terms, sc)
+    sums_same = torch.equal(again[0], S_b) and torch.equal(again[1], d_b)
+    ms_b = cuda_ms(lambda: ba_mod._assemble(terms, sc), 5)
+    ms_f = cuda_ms(lambda: ba_mod._assemble(terms, full), 3)
+    b = sc.band
+    row = {"on": label, "K": K, "P": P, "M": M, "chunk": chunk,
+           "band": list(band), "out_of_band": int(sc.band_ov),
+           "overflow_capacity": b.ov_idx.numel(),
+           "bases": [i * b.snap for i in range(b.base_oh.shape[0])
+                     if bool(b.base_oh[i].any())],
+           "chunks": b.base_oh.shape[1],
+           "listed_points": int(sc.ws.n_points),
+           "sums_err_of_scale": sums_err, "sums_bit_identical": sums_same,
+           "assembly_ms_banded": ms_b, "assembly_ms_full": ms_f}
+    del sc, full, terms, S_b, d_b, S_f, d_f, again
+    torch.cuda.empty_cache()
+
+    def solve(band_):
+        return ba_mod.ba_solve_fast(prob, cam, n_iters=10, chunk=chunk,
+                                    band=band_)
+
+    runs = {}
+    for key, band_ in (("banded", "auto"), ("full", None)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs[key] = solve(band_)
+        torch.cuda.synchronize()
+        row[f"peak_mb_{key}"] = (torch.cuda.max_memory_allocated()
+                                 - base) / 2 ** 20
+        row[f"ms_per_solve_{key}"] = cuda_ms(lambda: solve(band_), 3)
+    a, f = runs["banded"], runs["full"]
+    again = solve("auto")
+    same = all(torch.equal(x, y) for x, y in zip(a, again))
+    row.update(
+        cost_banded=float(a.cost), cost_full=float(f.cost),
+        cost_rel_diff=abs(float(a.cost) - float(f.cost)) / float(f.cost),
+        max_abs_dq=float((a.q - f.q).abs().max()),
+        max_abs_dt=float((a.t - f.t).abs().max()),
+        band_ov=int(a.band_ov), solves_bit_identical=same,
+        card=card_line())
+    print("band: " + json.dumps(row))
+    problems = []
+    if not sums_err <= BAND_SUMS_TOL or not sums_same:
+        problems.append(f"one build's sums {sums_err} of scale from full "
+                        f"width (tolerance {BAND_SUMS_TOL}), bit-identical "
+                        f"rerun {sums_same}")
+    if not row["cost_rel_diff"] <= BAND_COST_RTOL:
+        problems.append(f"final cost {row['cost_banded']} against "
+                        f"{row['cost_full']} at full width (tolerance "
+                        f"{BAND_COST_RTOL} relative)")
+    if not same or not bool(torch.isfinite(a.cost)):
+        problems.append("two banded solves differ or the cost is not finite")
+    if problems:
+        raise SystemExit(f"band: {label}: " + "; ".join(problems))
+    del runs, a, f, again
+    torch.cuda.empty_cache()
+    return row
 
 
 def bench_gba():
@@ -3230,6 +3355,10 @@ def main():
     bench_report, bench_prob, bench_cam, bench_launches = bench_gba()
     bench_k2, bench_k3 = check_gba_kernels("bench GBA", bench_prob,
                                            bench_cam, 8192)
+    band_rows = [check_band("bench GBA", bench_prob, bench_cam, 8192),
+                 check_band("bench GBA, 2000 points spanning",
+                            spanning_problem(bench_prob, 2000), bench_cam,
+                            8192)]
     del bench_prob
     torch.cuda.empty_cache()
 
@@ -3261,6 +3390,9 @@ def main():
         lba_k2, lba_k3 = check_gba_kernels(
             "corridor local BA", lba_prob, cam,
             steps_mod._ba_chunk(lba_prob.pw.shape[0]))
+        band_rows.append(check_band(
+            "corridor local BA", lba_prob, cam,
+            steps_mod._ba_chunk(lba_prob.pw.shape[0])))
         del lba_prob
         torch.cuda.empty_cache()
         server, split, split_launches, fusion_prob = drive_split(seq_dir,
@@ -3271,6 +3403,15 @@ def main():
     fusion_k2, fusion_k3 = check_gba_kernels(
         "fusion GBA", fusion_prob, cam,
         steps_mod._ba_chunk(fusion_prob.pw.shape[0]))
+    band_rows.append(check_band(
+        "fusion GBA", fusion_prob, cam,
+        steps_mod._ba_chunk(fusion_prob.pw.shape[0])))
+    print("band, summary: " + json.dumps({
+        r["on"]: {k: r[k] for k in (
+            "out_of_band", "overflow_capacity", "assembly_ms_banded",
+            "assembly_ms_full", "ms_per_solve_banded", "ms_per_solve_full",
+            "peak_mb_banded", "peak_mb_full", "cost_rel_diff")}
+        for r in band_rows}) + "; " + card)
     del fusion_prob
 
     # 7. the record: each kernel at the shape its main path gives it, its

@@ -14,11 +14,18 @@ Two solvers of the same problem:
   the tests.
 - ``ba_solve_fast``: the production path. Per LM iteration one fused
   preparation of all per-observation and per-point terms
-  (``ba_prep.prep_terms``, a CUDA kernel on the card), the full-width one-hot
-  assembly of S as matrix products, and block-Jacobi preconditioned CG
+  (``ba_prep.prep_terms``, a CUDA kernel on the card), the one-hot assembly
+  of S as matrix products, and block-Jacobi preconditioned CG
   (``pcg.pcg_solve``, a CUDA kernel on the card), with deferred-accept LM: the
   build at the current parameters yields the robust cost there, which is the
   accept test of the previous step.
+
+The assembly is full width (a (K + 1)-wide one-hot) or banded, as the JAX
+package picks it (``band="auto"``: K >= 192 and P >= 8192). Banded, the
+points are sorted by their first observing pose, each chunk of them gets a
+window of R poses, and the cross-term products run R wide; the points that
+leave their window go through an exact full-width overflow pass, sized once
+per solve (one host read) so that it holds all of them.
 
 On the card the LM loop never waits for the host: lambda, the costs and the
 accept decision stay on the device (``torch.where``), the 6x6 block inverse
@@ -34,7 +41,8 @@ import torch
 
 from ..geometry import se3
 from ..geometry.camera import Intrinsics
-from ..utils.torch_ops import const_tensor
+from ..utils.torch_ops import (const_tensor, first_true_indices,
+                               host_fetch)
 from . import ba_prep, pcg
 from . import residuals as res
 
@@ -61,7 +69,7 @@ class BAResult(NamedTuple):
     cost: torch.Tensor         # final robust cost
     obs_chi2: torch.Tensor     # [P, M] final per-observation chi2
     n_iters: torch.Tensor
-    band_ov: Optional[torch.Tensor] = None   # always 0: assembly is full width
+    band_ov: Optional[torch.Tensor] = None   # out-of-band points (banded)
 
 
 def _chunks(P: int, chunk: int):
@@ -242,59 +250,267 @@ def outlier_mask(result: BAResult, prob: BAProblem,
 _TRIU_ROW = tuple(ba_prep.TRIU6.index((min(a, b), max(a, b)))
                   for a in range(6) for b in range(6))
 
+# the per-point fields of a BAProblem (the rest are the poses')
+POINT_FIELDS = ("pw", "point_valid", "obs_kf", "obs_uvr", "obs_inv_sigma2",
+                "obs_stereo", "obs_mask")
+
+
+def _resolve_band(band, K: int, P: int, auto_oc_div: int = 64):
+    """The JAX package's `band` forms as (R, OC, snap), or None for the
+    full-width assembly: "auto" is (128, max(256, P // auto_oc_div), 64)
+    when K >= 192 and P >= 8192, else None (a shard passes its own P and
+    auto_oc_div 16); an int R is (R, max(256, P // 16), 1); (R, OC) is
+    (R, OC, 1). R is the window of poses, OC the overflow pass's static
+    capacity, snap the multiple the window bases are snapped to."""
+    if band is None:
+        return None
+    if isinstance(band, str):
+        if band != "auto":
+            raise ValueError(f"band: unknown form {band!r}")
+        return ((128, max(256, P // auto_oc_div), 64)
+                if K >= 192 and P >= 8192 else None)
+    if isinstance(band, int):
+        band = (band, max(256, P // 16), 1)
+    band = tuple(int(b) for b in band)
+    if len(band) == 2:
+        band += (1,)
+    if len(band) != 3 or not (1 <= band[0] <= K + 1 and band[1] >= 0
+                              and band[2] >= 1):
+        raise ValueError(f"band {band}: needs (R, OC[, snap]) with "
+                         f"1 <= R <= K + 1 = {K + 1}, OC >= 0, snap >= 1")
+    return band
+
+
+def _classify_band(prob: BAProblem, chunk: int, R: int, snap: int):
+    """The JAX package's ``_classify_band``, on the device without a host
+    read. Returns (perm [P] int64: the points stably sorted by their first
+    observing pose; base_c [n_chunks] int64: each chunk's window base, its
+    first pose snapped down to a multiple of `snap` and clamped to
+    ((K - R) // snap) * snap; in_band [n_chunks, cp] bool, in sorted order:
+    every observation of the point inside its chunk's window [base,
+    base + R), or none at all; n_ov int32: the points that are not). The
+    clamp can strand up to snap - 1 top poses outside every window: their
+    points take the overflow pass."""
+    K = prob.q.shape[0]
+    P = prob.obs_kf.shape[0]
+    mask = prob.obs_mask & (prob.obs_kf >= 0)
+    kf = prob.obs_kf.long()
+    kf_min = torch.where(mask, kf, K + 1).amin(dim=1)
+    perm = torch.argsort(kf_min, stable=True)
+    n_chunks, cp = _chunks(P, chunk)
+    kf_min_s = kf_min[perm].clamp(0, K)
+    kf_max_s = torch.where(mask, kf, -1).amax(dim=1)[perm]
+    has_act = mask.any(dim=1)[perm]
+    cmin = kf_min_s.reshape(n_chunks, cp).amin(dim=1)
+    b_max = (max(K - R, 0) // snap) * snap
+    base_c = ((cmin // snap) * snap).clamp(max=b_max)
+    base_p = base_c.repeat_interleave(cp)
+    in_band = ((kf_min_s >= base_p) & (kf_max_s < base_p + R)) | ~has_act
+    return (perm, base_c, in_band.reshape(n_chunks, cp),
+            (~in_band).sum(dtype=torch.int32))
+
+
+def _overflow_capacity(n_ov: int, OC: int, P: int):
+    """Capacity of the overflow pass for n_ov out-of-band points, so that it
+    holds all of them, as the JAX package's untraced wrapper re-solves: the
+    smallest power of two >= 256 that holds them, at most the static OC
+    while OC holds them (0 when there are none); past OC that power of two,
+    or None (full width) once it reaches max(P // 4, 256)."""
+    if n_ov == 0:
+        return 0
+    cap = 256
+    while cap < n_ov:
+        cap *= 2
+    if n_ov <= OC:
+        return min(cap, OC)
+    return None if cap >= max(P // 4, 256) else cap
+
+
+class _Band(NamedTuple):
+    """The banded assembly of one solve, points in sorted order."""
+    R: int                   # window of poses
+    snap: int                # window bases are b * snap, b < NB
+    onehot: torch.Tensor     # [n_chunks, cp, M, R] float32: in-band slots
+    base_oh: torch.Tensor    # [NB, n_chunks] float32: chunk c's base b
+    ov_idx: torch.Tensor     # [OC] int64: out-of-band points, then P
+    ov_onehot: torch.Tensor  # [OC, M, K] float32: their slots' poses
+
+
+def _one_hot(idx, ok, width: int):
+    """[*idx.shape, width] float32 one-hot of idx where ok, zero rows
+    elsewhere; written in place (one index a row: no accumulation)."""
+    out = torch.zeros(idx.shape + (width,), dtype=torch.float32,
+                      device=idx.device)
+    return out.scatter_(-1, idx[..., None], ok[..., None].to(torch.float32))
+
+
+def _band_plan(ws: ba_prep.PrepWorkspace, base_c, in_band, R: int,
+               snap: int, OC: int, K: int) -> _Band:
+    """The one-hots of the banded assembly, built once per solve from K2's
+    workspace of the sorted problem: the JAX package's ``_band_onehot`` in
+    the point-major layout (an active slot of an in-band point at column
+    pose - base) and the overflow pass's, full width over the first OC
+    out-of-band points (ascending)."""
+    P, M = ws.kf.shape
+    n_chunks, cp = in_band.shape
+    dev = ws.kf.device
+    kf = ws.kf.long()
+    active = ws.active > 0
+    rel = (kf.view(n_chunks, cp, M) - base_c[:, None, None]).clamp(0, R - 1)
+    onehot = _one_hot(rel, active.view(n_chunks, cp, M)
+                      & in_band[..., None], R)
+    NB = max(K - R, 0) // snap + 1
+    base_oh = (base_c // snap == torch.arange(NB, device=dev)[:, None]
+               ).to(torch.float32)
+    ov_idx = first_true_indices(~in_band.reshape(P), OC, P)
+    ovc = ov_idx.clamp(max=P - 1)
+    ov_onehot = _one_hot(kf[ovc], active[ovc] & (ov_idx < P)[:, None], K)
+    return _Band(R, snap, onehot, base_oh, ov_idx, ov_onehot)
+
 
 class _SolveConsts(NamedTuple):
-    """What stays fixed inside one solve."""
+    """What stays fixed inside one solve, the points in solve order (sorted
+    by first observing pose on the banded path)."""
     ws: ba_prep.PrepWorkspace
-    onehot: torch.Tensor     # [n_chunks, cp, M, K + 1] float32
+    onehot: Optional[torch.Tensor]   # [n_chunks, cp, M, K + 1] (full width)
+    band: Optional[_Band]            # the banded assembly, else None
     free: torch.Tensor       # [K] bool
     has_obs: torch.Tensor    # [P] bool (valid point with an observation)
     idx: torch.Tensor        # arange(K)
     triu: torch.Tensor       # [6, 6] int64: row of diag holding Ht[a, b]
+    pw: torch.Tensor         # [P, 3] starting points, solve order
+    inv: Optional[torch.Tensor]   # [P] solve position of each caller point
+    band_ov: torch.Tensor    # int32: out-of-band points (0 at full width)
 
 
-def _prepare_solve(prob: BAProblem, chunk: int) -> _SolveConsts:
+def _prepare_solve(prob: BAProblem, chunk: int, band=None,
+                   check_overflow: bool = True) -> _SolveConsts:
+    """The constants of one solve. `band`: (R, OC, snap) from
+    ``_resolve_band``, or None for full width. Banded, the points are
+    classified and sorted, and K2's workspace is prepared on the sorted
+    problem. With check_overflow the out-of-band count is read (the solve's
+    one host read) and sizes the overflow pass (``_overflow_capacity``;
+    full width on the caller's order where banding no longer pays); without
+    it the static OC holds the first OC out-of-band points and the rest
+    drop out of the assembly, not out of the cost (the JAX package's traced
+    callers)."""
     K = prob.q.shape[0]
     P, M = prob.obs_kf.shape
     dev = prob.q.device
+    band_ov = _int_scalar(0, dev)
+    perm = None
+    if band is not None:
+        R, OC, snap = band
+        perm, base_c, in_band, band_ov = _classify_band(prob, chunk, R, snap)
+        if check_overflow:
+            OC = _overflow_capacity(int(host_fetch(band_ov)), OC, P)
+        if OC is None:
+            perm = None
+        else:
+            prob = prob._replace(**{f: getattr(prob, f)[perm]
+                                    for f in POINT_FIELDS})
     ws = ba_prep.prepare(prob.obs_kf, prob.obs_uvr, prob.obs_inv_sigma2,
                          prob.obs_stereo, prob.obs_mask, prob.point_valid, K)
-    # inactive slots go to the (dropped) row K of the one-hot
-    kf_masked = torch.where(ws.active > 0, ws.kf.long(),
-                            torch.full_like(ws.kf, K, dtype=torch.int64))
-    n_chunks, cp = _chunks(P, chunk)
-    onehot = (kf_masked[..., None] == torch.arange(K + 1, device=dev)
-              ).to(torch.float32).reshape(n_chunks, cp, M, K + 1)
+    onehot = plan = inv = None
+    if perm is None:
+        onehot = _full_onehot(ws, chunk, K)
+    else:
+        plan = _band_plan(ws, base_c, in_band, R, snap, OC, K)
+        inv = torch.empty_like(perm).scatter_(
+            0, perm, torch.arange(P, device=dev))
     has_obs = torch.any(prob.obs_mask & (prob.obs_kf >= 0), dim=-1) \
         & prob.point_valid
-    return _SolveConsts(ws=ws, onehot=onehot,
+    return _SolveConsts(ws=ws, onehot=onehot, band=plan,
                         free=prob.pose_valid & ~prob.pose_fixed,
                         has_obs=has_obs, idx=torch.arange(K, device=dev),
                         triu=const_tensor(_TRIU_ROW, torch.int64,
-                                          dev).reshape(6, 6))
+                                          dev).reshape(6, 6),
+                        pw=prob.pw, inv=inv, band_ov=band_ov)
+
+
+def _full_onehot(ws: ba_prep.PrepWorkspace, chunk: int, K: int):
+    """The full-width one-hot [n_chunks, cp, M, K + 1] of K2's workspace:
+    inactive slots go to the (dropped) column K."""
+    P, M = ws.kf.shape
+    kf_masked = torch.where(ws.active > 0, ws.kf.long(),
+                            torch.full_like(ws.kf, K, dtype=torch.int64))
+    n_chunks, cp = _chunks(P, chunk)
+    return (kf_masked[..., None] == torch.arange(K + 1, device=ws.kf.device)
+            ).to(torch.float32).reshape(n_chunks, cp, M, K + 1)
+
+
+def _caller_order(x, sc: _SolveConsts):
+    """A per-point array of the solve ([P, ...]) in the caller's order."""
+    return x if sc.inv is None else x[sc.inv]
+
+
+def _cross_sums(Y, Wb, diag, Of, out=(None, None)):
+    """Raw sums of one group of n points onto W poses: S [6W, 6W], rows and
+    columns (twist component, pose), and d [33, W] of Ht / bt / Ybp, from
+    K2's Y, Wb [18, n, M] and diag [33, n, M] and the slots' one-hot
+    Of [n, M, W], written into `out` (S, d) where given. Every product has
+    a fixed summation order."""
+    n, M, W = Of.shape
+    d = torch.mm(diag.reshape(33, n * M), Of.reshape(n * M, W), out=out[1])
+    # per-point factorized cross term: U[p, (c, a), k] = sum_m Y O
+    U = torch.bmm(Y.transpose(0, 1), Of)                       # [n, 18, W]
+    V = torch.bmm(Wb.transpose(0, 1), Of)
+    # rows (point, coordinate), columns (twist component, pose)
+    return torch.mm(U.reshape(n * 3, 6 * W).t(), V.reshape(n * 3, 6 * W),
+                    out=out[0]), d
 
 
 def _assemble(terms: ba_prep.PrepTerms, sc: _SolveConsts):
     """Reduce the per-observation terms onto keyframes: the raw sums S_acc
-    [6 (K + 1), 6 (K + 1)] of the cross blocks and dsum [33, K + 1] of
-    Ht / bt / Ybp, whose pose K collects the inactive slots (``_pose_sums``
-    drops it). Full-width one-hot products, chunked over points; every
-    product has a fixed summation order. The terms are point-major, so every
-    operand is a view of them."""
-    n_chunks, cp, M, KK = sc.onehot.shape
+    [6 (K + 1), 6 (K + 1)] of the cross blocks, (twist component, pose)
+    major, and dsum [33, K + 1] of Ht / bt / Ybp, whose pose K (dropped by
+    ``_pose_sums``) collects nothing but zeros. Chunked over points; the
+    terms are point-major, so every operand is a view of them.
+
+    Full width: one (K + 1)-wide one-hot product a chunk. Banded: an R-wide
+    [6R, 6R] patch a chunk, the patches summed per window base by a product
+    with the chunks' base one-hot, each base's sum added at its static
+    window of S_acc; then the overflow pass, full width over the points that
+    leave their window. No dynamic index and no float atomics: the sums have
+    a fixed order."""
+    K = sc.idx.shape[0]
+    KK = K + 1
     dev = terms.Wb.device
     S_acc = torch.zeros((6 * KK, 6 * KK), dtype=torch.float32, device=dev)
     dsum = torch.zeros((33, KK), dtype=torch.float32, device=dev)
+    b = sc.band
+    onehot = sc.onehot if b is None else b.onehot
+    n_chunks, cp = onehot.shape[:2]
+    if b is not None:
+        R = b.R
+        S_c = torch.empty((n_chunks, 36 * R * R), dtype=torch.float32,
+                          device=dev)
+        d_c = torch.empty((n_chunks, 33 * R), dtype=torch.float32, device=dev)
     for ci in range(n_chunks):
         sl = slice(ci * cp, (ci + 1) * cp)
-        Of = sc.onehot[ci]                                    # [cp, M, KK]
-        d = terms.diag[:, sl].reshape(33, cp * M)
-        dsum += d @ Of.reshape(cp * M, KK)
-        # per-point factorized cross term: U[p, (c, a), k] = sum_m Y O
-        U = torch.bmm(terms.Y[:, sl].transpose(0, 1), Of)      # [cp, 18, KK]
-        V = torch.bmm(terms.Wb[:, sl].transpose(0, 1), Of)
-        # rows (point, coordinate), columns (twist component, pose)
-        S_acc += U.reshape(cp * 3, 6 * KK).t() @ V.reshape(cp * 3, 6 * KK)
+        out = ((None, None) if b is None else
+               (S_c[ci].view(6 * R, 6 * R), d_c[ci].view(33, R)))
+        S, d = _cross_sums(terms.Y[:, sl], terms.Wb[:, sl],
+                           terms.diag[:, sl], onehot[ci], out)
+        if b is None:
+            dsum += d
+            S_acc += S
+    if b is None:
+        return S_acc, dsum
+    S_b = (b.base_oh @ S_c).view(-1, 6, R, 6, R)
+    d_b = (b.base_oh @ d_c).view(-1, 33, R)
+    del S_c, d_c
+    S4 = S_acc.view(6, KK, 6, KK)
+    for i in range(S_b.shape[0]):
+        w = slice(i * b.snap, i * b.snap + R)
+        S4[:, w, :, w] += S_b[i]
+        dsum[:, w] += d_b[i]
+    if b.ov_idx.numel():
+        ovc = b.ov_idx.clamp(max=terms.Wb.shape[1] - 1)
+        S, d = _cross_sums(terms.Y[:, ovc], terms.Wb[:, ovc],
+                           terms.diag[:, ovc], b.ov_onehot)
+        S4[:, :K, :, :K] += S.view(6, K, 6, K)
+        dsum[:, :K] += d
     return S_acc, dsum
 
 
@@ -318,6 +534,23 @@ def _reduce_sums(reduce, S_acc, dsum, cost):
             buf[n_s + n_d])
 
 
+def _camera_system(S_acc, dsum, sc: _SolveConsts, lam):
+    """The damped reduced camera system from ``_assemble``'s raw sums (one
+    shard's, or all shards' summed): (S [6K, 6K], rows and columns (pose,
+    twist component); rhs [K, 6]; Dinv [K, 6, 6], the inverses of its
+    diagonal blocks)."""
+    K = sc.idx.shape[0]
+    S_blocks, dsum = _pose_sums(S_acc, dsum, K)
+    Hcc = dsum[:21].t()[:, sc.triu]                           # [K, 6, 6]
+    bc = dsum[21:27].t()
+    rhs_pose = dsum[27:33].t()
+    S = _reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
+    rhs = torch.where(sc.free[:, None], bc - rhs_pose, torch.zeros_like(bc))
+    eye6 = torch.eye(6, dtype=torch.float32, device=S.device)
+    Dinv = torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse
+    return S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K), rhs, Dinv
+
+
 def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
                           delta2_s, use_huber, pcg_iters, x0, reduce=None):
     """One LM build and solve. Returns (dc [K, 6], dp [P, 3], robust cost at
@@ -335,16 +568,7 @@ def _build_and_solve_fast(sc: _SolveConsts, q, t, pw, cam, lam, delta2_m,
     S_acc, dsum = _assemble(terms, sc)
     if reduce is not None:
         S_acc, dsum, cost0 = _reduce_sums(reduce, S_acc, dsum, cost0)
-    S_blocks, dsum = _pose_sums(S_acc, dsum, K)
-    Hcc = dsum[:21].t()[:, sc.triu]                           # [K, 6, 6]
-    bc = dsum[21:27].t()
-    rhs_pose = dsum[27:33].t()
-    S = _reduced_system(S_blocks, Hcc, lam, sc.free, sc.idx)
-    rhs = torch.where(sc.free[:, None], bc - rhs_pose, torch.zeros_like(bc))
-
-    S_dense = S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
-    eye6 = torch.eye(6, dtype=torch.float32, device=q.device)
-    Dinv = torch.linalg.inv_ex(S[sc.idx, sc.idx] + 1e-8 * eye6).inverse
+    S_dense, rhs, Dinv = _camera_system(S_acc, dsum, sc, lam)
     dc = pcg.pcg_solve(S_dense, rhs.reshape(-1), Dinv, n_iters=pcg_iters,
                        x0=None if x0 is None else x0.reshape(-1)
                        ).reshape(K, 6)
@@ -370,36 +594,48 @@ def ba_solve_fast(prob: BAProblem, cam: Intrinsics, n_iters: int = 10,
                   use_pallas=None, check_overflow: bool = True) -> BAResult:
     """ba_solve's semantics with the fused preparation, the one-hot assembly
     and PCG; deferred-accept LM with lambda in [1e-8, 1e4] and a warm-started
-    PCG.
+    PCG. The signature is the JAX package's; `chunk` bounds how many points
+    one assembly product takes.
 
-    The signature is the JAX package's. `band`, `cross_bf16`, `use_pallas`
-    and `check_overflow` select layouts of the TPU program and are ignored:
-    the assembly is always full width and exact, and `band_ov` is 0. `chunk`
-    bounds how many points one assembly product takes.
+    band: None for the full-width assembly, "auto" (banded where K >= 192
+    and P >= 8192), an int R, (R, OC) or (R, OC, snap) (``_resolve_band``).
+    Banded, the result is exact whatever the overflow: with check_overflow
+    the out-of-band count is read once and the overflow pass holds every
+    such point (full width where banding no longer pays), which is the JAX
+    package's re-solve, solved once. check_overflow=False reads nothing and
+    keeps the static capacity OC: points past it drop out of the assembly
+    (not out of the cost), as in the JAX package's traced callers, and the
+    caller checks `band_ov` (the out-of-band count; 0 at full width)
+    against OC. `pw` and `obs_chi2` come back in the caller's order.
+    `cross_bf16` and `use_pallas` select layouts of the TPU program and are
+    ignored: every product is float32.
     """
-    sc = _prepare_solve(prob, chunk)
-    q, t, pw = _lm_solve(sc, prob, cam, n_iters, use_huber, chi2_mono,
-                         chi2_stereo, pcg_iters, warm_start=True)
+    K = prob.q.shape[0]
+    P = prob.obs_kf.shape[0]
+    sc = _prepare_solve(prob, chunk, _resolve_band(band, K, P),
+                        check_overflow)
+    q, t, pw = _lm_solve(sc, prob.q, prob.t, cam, n_iters, use_huber,
+                         chi2_mono, chi2_stereo, pcg_iters, warm_start=True)
     out = ba_prep.prep_terms(sc.ws, q, t, pw, None, cam, chi2_mono,
                              chi2_stereo, use_huber, cost_only=True)
-    dev = prob.q.device
-    return BAResult(q=q, t=t, pw=pw, cost=torch.sum(out.cost),
-                    obs_chi2=out.chi2,
-                    n_iters=_int_scalar(n_iters, dev),
-                    band_ov=_int_scalar(0, dev))
+    return BAResult(q=q, t=t, pw=_caller_order(pw, sc),
+                    cost=torch.sum(out.cost),
+                    obs_chi2=_caller_order(out.chi2, sc),
+                    n_iters=_int_scalar(n_iters, prob.q.device),
+                    band_ov=sc.band_ov)
 
 
-def _lm_solve(sc: _SolveConsts, prob: BAProblem, cam: Intrinsics,
-              n_iters: int, use_huber: bool, chi2_mono: float,
-              chi2_stereo: float, pcg_iters: int, warm_start: bool,
-              reduce=None):
-    """The LM loop of ``ba_solve_fast``; returns (q, t, pw). warm_start:
-    each PCG solve starts from the previous step (else from zero). With
-    `reduce` (an all-reduce that returns the summed tensor), `prob` is one
-    shard of the points: every build's sums and cost and the final cost are
-    summed over the shards, so the replicated poses take the same steps on
-    every shard."""
-    dev = prob.q.device
+def _lm_solve(sc: _SolveConsts, q, t, cam: Intrinsics, n_iters: int,
+              use_huber: bool, chi2_mono: float, chi2_stereo: float,
+              pcg_iters: int, warm_start: bool, reduce=None):
+    """The LM loop of ``ba_solve_fast`` from poses (q, t) and the points
+    sc.pw; returns (q, t, pw), pw in solve order. warm_start: each PCG solve
+    starts from the previous step (else from zero). With `reduce` (an
+    all-reduce that returns the summed tensor), the solve is one shard of
+    the points: every build's sums and cost and the final cost are summed
+    over the shards, so the replicated poses take the same steps on every
+    shard."""
+    dev = q.device
 
     def cost_fn(q, t, pw):
         out = ba_prep.prep_terms(sc.ws, q, t, pw, None, cam, chi2_mono,
@@ -412,7 +648,7 @@ def _lm_solve(sc: _SolveConsts, prob: BAProblem, cam: Intrinsics,
     # the accept test for the PREVIOUS step: if that step increased the cost,
     # revert to the backup and raise lambda (the build at the bad point is
     # discarded).
-    q, t, pw = prob.q, prob.t, prob.pw
+    pw = sc.pw
     qb, tb, pwb = q, t, pw
     cost_prev = torch.full((), torch.inf, dtype=torch.float32, device=dev)
     lam = torch.full((1,), 1e-4, dtype=torch.float32, device=dev)

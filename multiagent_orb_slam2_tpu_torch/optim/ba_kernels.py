@@ -184,12 +184,16 @@ def _guard(v):
     return torch.where(torch.abs(v) < 1e-30, torch.full_like(v, 1e-30), v)
 
 
-def pcg_solve(S_dense, rhs_flat, block_diag_inv, n_iters: int = 48, x0=None):
+def pcg_solve(S_dense, rhs_flat, block_diag_inv, n_iters: int = 48, x0=None,
+              rows_f64: bool = False):
     """Block-Jacobi preconditioned CG for the reduced camera system.
 
     S_dense [D, D], rhs [D], block_diag_inv [K, 6, 6] with D = 6K. Fixed
     iteration count (LM tolerates inexact steps; accept/reject guards
     descent). x0 warm-starts from the previous LM iteration's solution.
+    rows_f64 sums each row of S v in float64 and rounds it once to float32,
+    the arithmetic of ``csrc/pcg.cu``'s grid path; by default every row is
+    summed in float32, as in the JAX package and the cluster path.
     """
     K = block_diag_inv.shape[0]
 
@@ -197,17 +201,26 @@ def pcg_solve(S_dense, rhs_flat, block_diag_inv, n_iters: int = 48, x0=None):
         return torch.einsum("kij,kj->ki", block_diag_inv,
                             v.reshape(K, 6)).reshape(-1)
 
+    if rows_f64:
+        S64 = S_dense.double()
+
+        def matvec(v):
+            return (S64 @ v.double()).to(v.dtype)
+    else:
+        def matvec(v):
+            return S_dense @ v
+
     if x0 is None:
         x = torch.zeros_like(rhs_flat)
         r = rhs_flat
     else:
         x = x0
-        r = rhs_flat - S_dense @ x0
+        r = rhs_flat - matvec(x0)
     z = precond(r)
     p = z
     rz = torch.dot(r, z)
     for _ in range(n_iters):
-        Ap = S_dense @ p
+        Ap = matvec(p)
         alpha = rz / _guard(torch.dot(p, Ap))
         x = x + alpha * p
         r = r - alpha * Ap

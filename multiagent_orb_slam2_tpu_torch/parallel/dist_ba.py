@@ -14,6 +14,11 @@ contiguous blocks, one a rank,
   - the reduced camera solve (PCG, K3) is replicated on every rank, started
     from zero as the JAX distributed solve starts it.
 
+Each rank sorts and bands its own shard as ``ba_solve_fast`` does a whole
+problem (``optim/ba._prepare_solve``) and sizes its own overflow pass; the
+all-reduced buffer is [6 (K + 1)]^2 whatever each rank's assembly, so no
+rank takes a different branch around a collective.
+
 The poses are replicated and take the same steps on every rank, bit for
 bit: every rank solves the same all-reduced system.
 """
@@ -27,9 +32,6 @@ import torch.distributed as dist
 from ..geometry.camera import Intrinsics
 from ..optim import ba as ba_mod
 from .mesh import Mesh, gather_blocks
-
-_POINT_FIELDS = ("pw", "point_valid", "obs_kf", "obs_uvr", "obs_inv_sigma2",
-                 "obs_stereo", "obs_mask")
 
 
 def make_mesh(n_ranks: int = None, axis: str = "points") -> Mesh:
@@ -50,7 +52,8 @@ def shard_problem(prob: ba_mod.BAProblem, rank: int,
     if P % world:
         raise ValueError(f"{P} points do not split over {world} ranks")
     sl = slice(rank * (P // world), (rank + 1) * (P // world))
-    return prob._replace(**{f: getattr(prob, f)[sl] for f in _POINT_FIELDS})
+    return prob._replace(**{f: getattr(prob, f)[sl]
+                            for f in ba_mod.POINT_FIELDS})
 
 
 def gather_points(pw_local: torch.Tensor, group=None) -> torch.Tensor:
@@ -68,19 +71,27 @@ def distributed_ba_solve(prob_local: ba_mod.BAProblem, cam: Intrinsics,
     """``ba_solve_fast`` over the points of `axis` of `mesh` (default: its
     last axis): prob_local holds this rank's block of the point axis and
     the whole pose tables. Returns (q, t, pw_local): q and t replicated, the
-    rank's block of the points.
+    rank's block of the points in its own order.
 
-    The signature is the JAX package's. `band` and `cross_bf16` select
-    layouts of the TPU program and are ignored: the assembly is full width.
-    Each rank's assembly takes max(min(chunk, P_local // 4), 1) points a
-    product. PCG starts from zero in every iteration (the JAX distributed
-    solve passes no warm start), so at one rank this is not bit-equal to
-    ``ba_solve_fast``, which warm-starts."""
+    The signature is the JAX package's. `band` takes ``ba_solve_fast``'s
+    forms with the shard's P_local: "auto" is (128, max(256, P_local // 16),
+    64) where K >= 192 and P_local >= 8192. Each rank reads its own
+    out-of-band count once and its overflow pass holds every such point
+    (the JAX package's traced shards keep the static capacity and drop the
+    excess from the assembly). `cross_bf16` selects a layout of the TPU
+    program and is ignored. Each rank's assembly takes max(min(chunk,
+    P_local // 4), 1) points a product. PCG starts from zero in every
+    iteration (the JAX distributed solve passes no warm start), so at one
+    rank this is not bit-equal to ``ba_solve_fast``, which warm-starts."""
     axis = axis or mesh.axis_names[-1]
-    local_chunk = max(min(chunk, prob_local.pw.shape[0] // 4), 1)
-    sc = ba_mod._prepare_solve(prob_local, local_chunk)
-    return ba_mod._lm_solve(sc, prob_local, cam, n_iters, use_huber,
-                            chi2_mono, chi2_stereo, pcg_iters,
-                            warm_start=False,
-                            reduce=functools.partial(mesh.all_reduce,
-                                                     axis=axis))
+    P_local = prob_local.pw.shape[0]
+    local_chunk = max(min(chunk, P_local // 4), 1)
+    band = ba_mod._resolve_band(band, prob_local.q.shape[0], P_local,
+                                auto_oc_div=16)
+    sc = ba_mod._prepare_solve(prob_local, local_chunk, band)
+    q, t, pw = ba_mod._lm_solve(sc, prob_local.q, prob_local.t, cam, n_iters,
+                                use_huber, chi2_mono, chi2_stereo, pcg_iters,
+                                warm_start=False,
+                                reduce=functools.partial(mesh.all_reduce,
+                                                         axis=axis))
+    return q, t, ba_mod._caller_order(pw, sc)

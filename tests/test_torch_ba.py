@@ -5,10 +5,11 @@ assembly + PCG; on CPU tensors both of its kernels run their plain versions).
 Full width against full width is the same algorithm, so the tolerances are
 tight: 1e-4 in q and t, 1e-4 relative in cost, 1e-3 m in the points (found:
 q 2e-7, t 1e-6, cost 1e-6 relative, points 2e-5 m) on the 8-pose problems;
-the 48-pose benchmark-shaped problem states its own in its test. Against the
-JAX package's banded assembly the tolerances are tests/test_ba_fast.py's own
-(5e-3 in q, 1e-2 in t, 1e-3 relative in cost). The JAX solves are shared
-through module-scoped fixtures: each distinct static shape is a compile.
+the 48-pose benchmark-shaped problem states its own in its test, against the
+JAX package's full-width and banded assemblies alike (the port bands as the
+JAX package does; tests/test_torch_ba_band.py holds the banded path in
+detail). The JAX solves are shared through module-scoped fixtures: each
+distinct static shape is a compile.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -135,20 +136,18 @@ def bench_like():
 
 @pytest.mark.parametrize("against", ["full", "banded"])
 def test_ba_solve_fast_matches_jax_on_bench_problem(bench_like, against):
+    # found: against full width q 9e-6, t 6.4e-4 m, cost 3.7e-4 relative.
+    # One build agrees to 2e-5 in the pose update (both packages sit 8e-4
+    # from a float64 solve of it); a 2e-5 rad difference turns positions
+    # 47 m from the origin by 1e-3 m, and the spanning observations put
+    # residuals of hundreds of pixels into the cost. The port is banded as
+    # the JAX package is, so both pairs are held to the same tolerances.
     b = bench_like
     tres = tba.ba_solve_fast(b["tprob"], TIntr(*b["cam"]), band=16, **b["kw"])
-    if against == "full":
-        # found: q 9e-6, t 6.4e-4 m, cost 3.7e-4 relative. One build agrees
-        # to 2e-5 in the pose update (both packages sit 8e-4 from a float64
-        # solve of it); a 2e-5 rad difference turns positions 47 m from the
-        # origin by 1e-3 m, and the spanning observations put residuals of
-        # hundreds of pixels into the cost.
-        _assert_result_close(tres, b["full"], b["tprob"], q_tol=1e-4,
-                             t_tol=5e-3, cost_rtol=1e-3, pw_tol=None)
-    else:
-        _assert_result_close(tres, b["banded"], b["tprob"], q_tol=5e-3,
-                             t_tol=1e-2, cost_rtol=1e-3, pw_tol=None)
-    assert int(tres.band_ov) == 0
+    _assert_result_close(tres, b[against], b["tprob"], q_tol=1e-4,
+                         t_tol=5e-3, cost_rtol=1e-3, pw_tol=None)
+    # the 96 spanning points and the poses the window clamp strands
+    assert int(tres.band_ov) == int(b["banded"].band_ov) > 0
 
 
 def test_port_problem_generator_equals_bench():

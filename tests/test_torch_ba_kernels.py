@@ -148,6 +148,27 @@ def test_pcg_solve_matches_jax_and_solves(warm):
 
 
 @pytest.mark.parametrize("warm", [False, True])
+def test_pcg_solve_rows_f64_matches_jax_and_float64_cg(warm):
+    """rows_f64 (csrc/pcg.cu's grid-path arithmetic: each row of S p summed
+    in float64, rounded once): after 32 iterations within 1e-4 of the JAX
+    package's float32 solve, and after 2 within 1e-6 of a float64 CG of the
+    same 2 iterations."""
+    S, rhs, Dinv, x0 = _spd_system(3)
+    x0 = x0 if warm else None
+    want = jbk.pcg_solve(jnp.asarray(S), jnp.asarray(rhs), jnp.asarray(Dinv),
+                         32, None if x0 is None else jnp.asarray(x0))
+    args = [torch.from_numpy(a) for a in (S, rhs, Dinv)]
+    warm32 = None if x0 is None else torch.from_numpy(x0)
+    got = tbk.pcg_solve(*args, 32, warm32, rows_f64=True)
+    assert got.dtype == torch.float32
+    assert rel_err(got.numpy(), want) <= 1e-4
+    two = tbk.pcg_solve(*args, 2, warm32, rows_f64=True)
+    two64 = tbk.pcg_solve(*[a.double() for a in args], 2,
+                          None if x0 is None else warm32.double())
+    assert rel_err(two.numpy(), two64.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("warm", [False, True])
 def test_plain_pcg_matches_interpreted_pallas_body(warm):
     """D = 48: the dispatcher on CPU tensors (the plain version) against
     pcg_solve_pallas with its kernel body run by the Pallas interpreter."""

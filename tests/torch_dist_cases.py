@@ -24,13 +24,13 @@ from multiagent_orb_slam2_tpu_torch.parallel import (  # noqa: E402
 CAM = camera.Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=45.0)
 
 
-def solve_sharded(fields, rank, world, device, **kw):
+def solve_sharded(fields, rank, world, device, cam=CAM, **kw):
     """This rank's distributed_ba_solve of the whole problem `fields` on a
     one-axis mesh of the default group: (q, t, whole pw) as numpy."""
     prob = convert.ba_problem_from_numpy(fields, device)
     mesh = dist_ba.make_mesh(world)
     q, t, pw_local = dist_ba.distributed_ba_solve(
-        dist_ba.shard_problem(prob, rank, world), CAM, mesh, **kw)
+        dist_ba.shard_problem(prob, rank, world), cam, mesh, **kw)
     pw = dist_ba.gather_points(pw_local, mesh.groups["points"])
     return q.cpu().numpy(), t.cpu().numpy(), pw.cpu().numpy()
 
