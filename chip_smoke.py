@@ -18,7 +18,8 @@ global BA; the pose kernel held against its plain version on a tracked
 frame's all-mono problem, the Schur preparation on the first local BA's,
 which has no stereo row) and localization-only (stereo: frames 0-29
 mapped, 30-49 in localization mode, the map bit-equal across it, 50-59
-out of it), then a ``StereoRectifier`` on one pair against the CPU. Then
+out of it, where mapping must resume), then a ``StereoRectifier`` on one
+pair against the CPU. Then
 loop closing: ``System(CFG, vocab)`` with the committed vocabulary
 over 100 frames of the same corridor (keyframe database, loop detection,
 local and global BA, as a user builds the System); a loop detected and
@@ -41,8 +42,9 @@ the map it leaves, a kidnap (two black frames, then relocalization at an
 earlier pose) and a checkpoint round trip. Then the whole corridor split
 between two agents under the multi-agent server
 (``drivers/generic_split_seq -n 2``): the maps fuse where agent 1's last
-stretch revisits agent 0's start; each agent's trajectory is evaluated and
-the fused map checkpointed. The Schur preparation (K2) and PCG (K3) are
+stretch revisits agent 0's start; each agent's trajectory is evaluated,
+no agent may reset, and the fused map is checkpointed; then the same
+corridor between three agents (``-n 3``). The Schur preparation (K2) and PCG (K3) are
 held against their plain versions on both global BAs' own problems, on the
 corridor's last local BA and on the first post-fusion global BA. On three
 of those problems, which ``ba_solve_fast`` bands by default (the
@@ -71,7 +73,8 @@ K2 / K3 checks, the scale-out phase's (``scale-out:``, K1 on the agents'
 batch, K2 on one rank's shard, K3 on the all-reduced system), the
 corridor's (``corridor:``), the kidnap's and the
 checkpoint's lines and the K2 / K3 checks on the corridor's local BA, the
-split phase's (``split:``, ``split checkpoint:``) and the K2 / K3 checks on
+split phase's (``split:``, ``split checkpoint:``), the three-agent split's
+(``split3:``) and the K2 / K3 checks on
 the post-fusion global BA (``fusion GBA``), a ``band:`` line after each
 of the bench, corridor local BA and fusion K2 / K3 checks and a ``band,
 summary:`` line, one JSON object
@@ -2566,19 +2569,25 @@ def checkpoint(system, work):
 # the same corridor split between two agents under the multi-agent server
 # ---------------------------------------------------------------------------
 
-def drive_split(seq_dir, work):
-    """The corridor split in two halves through generic_split_seq -n 2 as a
-    user runs it (default capacities, the committed vocabulary, loop closing
-    and global BA on): agent 0 tracks frames 0-329, agent 1 frames 330-659,
-    whose last stretch revisits agent 0's start, where the maps fuse. Every
-    frame is timed (synchronize at its end), each keyframe, local BA, global
-    BA, Sim3 attempt and fusion too; host waits are counted per tracked
-    frame, per keyframe frame and per fusion (set_sync_debug_mode). Gate
-    (PERF.md): one final map, at least one fusion, each agent's ATE mean <
-    CORRIDOR_ATE_GATE_M and at least CORRIDOR_EXPORTED_GATE of its frames
-    exported. Returns (server, report, launches, the problem of the first
-    post-fusion global BA)."""
-    out_dir = os.path.join(work, "split0")
+def drive_split(seq_dir, work, n_agents=2):
+    """The corridor split between n_agents through generic_split_seq -n
+    n_agents as a user runs it (default capacities, the committed
+    vocabulary, loop closing and global BA on): with two agents agent 0
+    tracks frames 0-329, agent 1 frames 330-659, whose last stretch revisits
+    agent 0's start, where the maps fuse; with three, 220 frames an agent.
+    Every frame is timed (synchronize at its end), each keyframe, local BA,
+    global BA, Sim3 attempt and fusion too; host waits are counted per
+    tracked frame, per keyframe frame and per fusion (set_sync_debug_mode).
+    Gates (PERF.md): no agent reset (ROADMAP.md fault 11), each agent's ATE
+    mean < CORRIDOR_ATE_GATE_M and at least CORRIDOR_EXPORTED_GATE of its
+    frames exported, K1, K2 and K3 launched by every tracked frame, local
+    BA and global BA; with two agents also one final map holding both
+    agents' keyframes after at least one fusion (with three the maps and
+    fusions are reported). The phase prints as "split:" or
+    "split<n_agents>:". Returns (server, report, launches, the problem of
+    the first post-fusion global BA or None)."""
+    label = "split" if n_agents == 2 else f"split{n_agents}"
+    out_dir = os.path.join(work, label)
     frames, fusions, sim3, ms = [], [], [], {"keyframe": [], "local_ba": [],
                                              "gba": []}
     cur = {"kf": False, "reloc": False, "fusing": False, "detecting": False}
@@ -2689,7 +2698,7 @@ def drive_split(seq_dir, work):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             server, summary = generic_split_seq.run(
-                ["-t", "stereo_synth", "-n", "2", "-d", seq_dir,
+                ["-t", "stereo_synth", "-n", str(n_agents), "-d", seq_dir,
                  "-s", os.path.join(seq_dir, "settings.json"),
                  "-o", out_dir, "--device", "cuda"])
     finally:
@@ -2703,8 +2712,9 @@ def drive_split(seq_dir, work):
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     gt = os.path.join(seq_dir, "gt_tum.txt")
     evs = [genstats.evaluate(gt, os.path.join(out_dir, f"SLAM{a}.txt"))
-           for a in range(2)]
-    n_agent = [len(s) for s in datasets.load_synth_stereo(seq_dir).split(2)]
+           for a in range(n_agents)]
+    n_agent = [len(s) for s in
+               datasets.load_synth_stereo(seq_dir).split(n_agents)]
 
     def median(values):
         values = list(values)
@@ -2720,13 +2730,15 @@ def drive_split(seq_dir, work):
         "run_s": run_s, "caps": dataclasses.asdict(server.cfg.caps),
         "final_maps": summary["final_maps"], "fusions": summary["fusions"],
         "relocalizations": summary["relocalizations"],
+        "resets": summary["resets"],
         "ate_mean_m": [e["ate"] if e else None for e in evs],
         "ate_rmse_m": [e["ate_rmse"] if e else None for e in evs],
         "rpe_t_m_per_frame": [e["rpe_t"] if e else None for e in evs],
         "frames_exported": [e["n"] if e else 0 for e in evs],
         "frames_lost": [sum(r.lost for r in t.trajectory)
                         for t in server.trackers.values()],
-        "jax_ate_mean_m": JAX_SPLIT_ATE_TRIAL0_M,
+        "jax_ate_mean_m": (JAX_SPLIT_ATE_TRIAL0_M if n_agents == 2
+                           else None),
         "stats": server.stats, "fusion_events": fusions,
         "fusion_sim3_attempts": len(fusion_sim3),
         "fusion_sim3_ms": [x["ms"] for x in fusion_sim3],
@@ -2741,6 +2753,7 @@ def drive_split(seq_dir, work):
         "keyframe_maps": sorted(set(st.kf_map.cpu().numpy()[valid].tolist())),
         "tracked_frame_ms_median": median(f["ms"] for f in tracked),
         "keyframe_frame_ms_median": median(f["ms"] for f in kf_frames),
+        "fusion_ms": [f["ms"] for f in fusions],
         "keyframe_ms_median": median(ms["keyframe"]),
         "local_ba_ms_median": median(ms["local_ba"]),
         "local_bas": len(ms["local_ba"]),
@@ -2752,23 +2765,26 @@ def drive_split(seq_dir, work):
         "max_memory_allocated_mb": peak_mb,
         "launches": launches,
     }
-    print("split: " + json.dumps(report))
+    print(f"{label}: " + json.dumps(report))
     for row in server.stats:
-        print("split: stats.csv row: " + ", ".join(
+        print(f"{label}: stats.csv row: " + ", ".join(
             f"{k} {row[k]:.2f}" if isinstance(row[k], float)
             else f"{k} {row[k]}" for k in (
                 "sim3_ms", "mf_ms", "ckf", "cmp", "mkf", "mmp", "cd_ms",
                 "n_cd", "gba_ms")))
-    print(f"split: ATE mean agent0 / agent1 {report['ate_mean_m']} m (the "
-          f"JAX package's trial 0: {JAX_SPLIT_ATE_TRIAL0_M[0]} / "
-          f"{JAX_SPLIT_ATE_TRIAL0_M[1]} m); exported "
-          f"{report['frames_exported']} of {n_agent}; final maps "
-          f"{summary['final_maps']}, fusions {summary['fusions']}, "
-          f"relocalizations {summary['relocalizations']}; run {run_s:.1f} s")
-    print(f"split: medians, ms: tracked frame "
+    jax = (f" (the JAX package's trial 0: {JAX_SPLIT_ATE_TRIAL0_M[0]} / "
+           f"{JAX_SPLIT_ATE_TRIAL0_M[1]} m)" if n_agents == 2 else "")
+    agents = " / ".join(f"agent{a}" for a in range(n_agents))
+    print(f"{label}: ATE mean {agents} {report['ate_mean_m']} m{jax}; "
+          f"exported {report['frames_exported']} of {n_agent}; resets "
+          f"{summary['resets']}; final maps {summary['final_maps']}, "
+          f"fusions {summary['fusions']}, relocalizations "
+          f"{summary['relocalizations']}; run {run_s:.1f} s")
+    print(f"{label}: medians, ms: tracked frame "
           f"{report['tracked_frame_ms_median']}, keyframe "
           f"{report['keyframe_ms_median']}, local BA "
-          f"{report['local_ba_ms_median']} ({len(ms['local_ba'])}); waits: "
+          f"{report['local_ba_ms_median']} ({len(ms['local_ba'])}), fusion "
+          f"{median(report['fusion_ms'])}; waits: "
           f"tracked frame {report['syncs_per_tracked_frame_median']}, "
           f"keyframe frame {report['syncs_per_keyframe_frame_median']}, "
           f"fusion {report['syncs_per_fusion']}; fusion Sim3 attempts "
@@ -2776,7 +2792,10 @@ def drive_split(seq_dir, work):
           f"launches K1 / K2 / K3 {launches['pose_opt']} / "
           f"{launches['ba_prep']} / {launches['pcg']}")
     problems = []
-    if summary["final_maps"] != 1 or summary["fusions"] < 1:
+    if any(summary["resets"]):
+        problems.append(f"agents reset {summary['resets']} times (need 0)")
+    if n_agents == 2 and (summary["final_maps"] != 1
+                          or summary["fusions"] < 1):
         problems.append(f"{summary['final_maps']} final maps, "
                         f"{summary['fusions']} fusions (need 1 and >= 1)")
     for a, (e, n) in enumerate(zip(evs, n_agent)):
@@ -2788,8 +2807,8 @@ def drive_split(seq_dir, work):
             problems.append(f"agent {a}: {e and e['n']} of {n} frames "
                             f"exported (need >= "
                             f"{CORRIDOR_EXPORTED_GATE:.0%})")
-    if report["keyframe_agents"] != [0, 1] or \
-            len(report["keyframe_maps"]) != 1:
+    if n_agents == 2 and (report["keyframe_agents"] != [0, 1]
+                          or len(report["keyframe_maps"]) != 1):
         problems.append(f"live keyframes of agents "
                         f"{report['keyframe_agents']} on maps "
                         f"{report['keyframe_maps']} (need both on one)")
@@ -2798,12 +2817,12 @@ def drive_split(seq_dir, work):
             launches["pcg"] < 15 * len(ms["local_ba"]):
         problems.append(f"launches {launches} for {len(tracked)} tracked "
                         f"frames and {len(ms['local_ba'])} local BAs")
-    if "fusion_prob" not in kept or any(
+    if (n_agents == 2 and "fusion_prob" not in kept) or any(
             g["ba_prep"] < 10 or g["pcg"] < 10 for g in gba_launches):
         problems.append(f"global BAs launched K2 / K3 {gba_launches}")
     if problems:
-        raise SystemExit("split failed: " + "; ".join(problems))
-    return server, report, launches, kept["fusion_prob"]
+        raise SystemExit(f"{label} failed: " + "; ".join(problems))
+    return server, report, launches, kept.get("fusion_prob")
 
 
 def checkpoint_fused(server, work):
@@ -3114,14 +3133,15 @@ def drive_localization(frames, t_gt):
     field bit-equal across the mode except mp_visible and mp_found; no
     frame of 0-49 lost and their ATE < 0.15 m, in the mode and over all of
     them (read before the mode is left); K1 at least once a frame in the
-    mode and no local BA. Then the mode is left for the rest, and whether
-    mapping resumes on the same map is reported, not gated: a keyframe in
-    those max_frames_between_kf frames with no frame lost and no new
-    initialization. It does not: 20 frames (5 m) past the map's last
-    keyframe the first frame out of the mode loses track in both packages,
-    and the young map resets (ROADMAP.md queue 3, fault 13); each of those
-    frames is reported with its state and decision vector. Returns
-    launches."""
+    mode and no local BA. Then the mode is left for the rest, and mapping
+    must resume on the same map: a keyframe in those
+    max_frames_between_kf frames, no frame lost and no new initialization
+    (ROADMAP.md fault 13: 20 frames, 5 m, past the map's last keyframe the
+    JAX package loses track on the first frame out of the mode and resets
+    the young map; the port makes the last frame tracked in the mode a
+    keyframe as it leaves, where NeedNewKeyFrame asks for one and the frame
+    was not VO-tracked). Each of those frames is reported with its state
+    and decision vector. Returns launches."""
     label = "localization path"
     n = len(frames)
     system = system_mod.System(CFG, None, enable_loop_closing=False)
@@ -3191,8 +3211,7 @@ def drive_localization(frames, t_gt):
           f"{SENSOR_ATE_GATE_M}), {report['vo_frames']} VO frames, "
           f"{kfs_after} keyframes after the mode, frames lost after it "
           f"{lost_after}, {inits_after} initializations after it; mapping "
-          f"resumed on the same map: {resumed}"
-          + ("" if resumed else " (known failure, fault 13; not gated)"))
+          f"resumed on the same map: {resumed}")
     problems = []
     if counts_after != counts or changed:
         problems.append(f"the map changed in localization mode: counts "
@@ -3208,6 +3227,11 @@ def drive_localization(frames, t_gt):
             or launches["ba_prep"] or launches["pcg"]:
         problems.append(f"launches in the mode {launches} (need pose_opt >= "
                         f"{LOC_END - LOC_MAP_FRAMES}, no BA)")
+    if not resumed:
+        problems.append(f"mapping did not resume after the mode: "
+                        f"{kfs_after} keyframes, frames lost {lost_after}, "
+                        f"{inits_after} initializations (need >= 1, none, "
+                        f"0)")
     if problems:
         raise SystemExit(f"{label} failed: " + "; ".join(problems))
     return launches
@@ -3398,7 +3422,12 @@ def main():
         server, split, split_launches, fusion_prob = drive_split(seq_dir,
                                                                  work)
         checkpoint_fused(server, work)
-    del server
+        del server
+        torch.cuda.empty_cache()
+        # the same corridor between three agents (the reference's protocol
+        # runs 2 to 4), each from a map of its own beside the others'
+        _, split3, split3_launches, _ = drive_split(seq_dir, work,
+                                                    n_agents=3)
     torch.cuda.empty_cache()
     fusion_k2, fusion_k3 = check_gba_kernels(
         "fusion GBA", fusion_prob, cam,
@@ -3430,6 +3459,7 @@ def main():
         "launches_reloc": corridor["pose_opt_launches_in_relocalization"],
         "launches_kidnap_reloc": kidnap_k1,
         "launches_split": split_launches["pose_opt"],
+        "launches_split3": split3_launches["pose_opt"],
         "launches_rgbd_path": rgbd_launches["pose_opt"],
         "launches_mono_path": mono_launches["pose_opt"],
         "launches_localization_path": loc_launches["pose_opt"],
@@ -3473,6 +3503,7 @@ def main():
         "launches_bench_gba": bench_launches["ba_prep"],
         "launches_corridor": corridor_launches["ba_prep"],
         "launches_split": split_launches["ba_prep"],
+        "launches_split3": split3_launches["ba_prep"],
         "launches_rgbd_path": rgbd_launches["ba_prep"],
         "launches_mono_path": mono_launches["ba_prep"],
         "launches_localization_path": loc_launches["ba_prep"],
@@ -3506,6 +3537,7 @@ def main():
         "launches_bench_gba": bench_launches["pcg"],
         "launches_corridor": corridor_launches["pcg"],
         "launches_split": split_launches["pcg"],
+        "launches_split3": split3_launches["pcg"],
         "launches_rgbd_path": rgbd_launches["pcg"],
         "launches_mono_path": mono_launches["pcg"],
         "launches_localization_path": loc_launches["pcg"],

@@ -156,20 +156,42 @@ def fuse_into_kf(state: ms.MapState, point_ids, target_kf: int,
     return _apply_point_rewrite(state, map_to)
 
 
+# keyframe creations one agent may make: SharedMap.kf_agent_seq offsets each
+# agent's creation ordinals by agent * AGENT_SEQ_STRIDE, so that two agents'
+# keyframes are never a few creations apart
+AGENT_SEQ_STRIDE = 1 << 20
+
+
 @torch.no_grad()
 def cull_points_step(state: ms.MapState, newest_kf_slot: int,
-                     cfg: SlamConfig):
+                     cfg: SlamConfig, agent_seq: torch.Tensor):
     """MapPointCulling: drop points whose found/visible ratio is below 0.25,
     and recent points (created within the last 2 keyframes) that failed to
     accumulate observations.
 
-    Age is measured in creation-sequence numbers (kf_seq), NOT slot indices:
-    slots are recycled after culling, so slot distance is meaningless.
+    Age is measured in creation-sequence numbers, NOT slot indices: slots
+    are recycled after culling, so slot distance is meaningless. The
+    sequence is `agent_seq` [K] (SharedMap.kf_agent_seq): each keyframe's
+    ordinal among its own agent's keyframe creations plus agent *
+    AGENT_SEQ_STRIDE, read where kf_seq marks the slot live. So a point ages
+    only with its own agent's keyframes and only that agent's keyframes
+    cull it for age. The JAX package reads kf_seq, the creation uid that
+    every agent advances, and its age test then culls another agent's young
+    map (ROADMAP.md, fault 11). The reference's MapPointCulling runs over
+    one agent's recently added points, but ages them in KeyFrame::mnId,
+    which every agent advances too; the port departs from it there on
+    purpose: its observation count counts keyframes where the reference's
+    Observations() counts a stereo observation twice, and with ages in
+    every agent's creations an agent's second keyframe of a 2-agent split
+    culls its initial map (PERF.md). With one agent the two sequences are
+    equal.
     """
     K, F, P, O = state.caps
     ratio = state.mp_found / state.mp_visible.clamp_min(1.0)
-    seq_new = state.kf_seq[newest_kf_slot]
-    seq_first = state.kf_seq[state.mp_first_kf.long().clamp(0, K - 1)]
+    seq = torch.where(state.kf_seq >= 0, agent_seq,
+                      torch.full_like(agent_seq, ms.NONE))
+    seq_new = seq[newest_kf_slot]
+    seq_first = seq[state.mp_first_kf.long().clamp(0, K - 1)]
     age = seq_new - seq_first                          # in KF creations
     n_obs = state.mp_n_obs()
     bad = state.mp_valid & (
@@ -204,15 +226,17 @@ def fuse_into_neighborhood(state: ms.MapState, point_ids, center_kf: int,
 
 
 @torch.no_grad()
-def local_mapping_pass(state: ms.MapState, kf_slot: int, cfg: SlamConfig):
+def local_mapping_pass(state: ms.MapState, kf_slot: int, cfg: SlamConfig,
+                       agent_seq: torch.Tensor):
     """The synchronous equivalent of one LocalMapping::Run iteration for a
     freshly inserted keyframe: cull -> fuse with covisibility neighbors
     (both directions) -> rebuild inverse obs -> refresh covis + point
     attributes. Local BA follows separately (steps.local_ba_step).
+    `agent_seq` as cull_points_step's.
     """
     from . import steps
     K, F, P, O = state.caps
-    state = cull_points_step(state, kf_slot, cfg)
+    state = cull_points_step(state, kf_slot, cfg, agent_seq)
 
     # top covisibility neighbors (reference: 10 for stereo, 20 mono)
     nb = cfg.mapping.triangulation_neighbors

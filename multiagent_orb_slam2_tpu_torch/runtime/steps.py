@@ -236,6 +236,27 @@ def track_local_map_step(state: ms.MapState, feats: FrameFeatures, q, t,
 
 
 @torch.no_grad()
+def keyframe_counters(state: ms.MapState, feats: FrameFeatures, frame_mp,
+                      ref_kf: int, use_min_obs_gate: bool, cfg: SlamConfig):
+    """NeedNewKeyFrame's counters of a tracked frame, [tracked_close,
+    untracked_close, ref_kf_matches] int32: the close features (depth under
+    th_depth baselines) with and without a map point, and the reference
+    keyframe's map points (those with at least 3 observations once the map
+    has more than 2 keyframes)."""
+    close_th = cfg.tracking.th_depth * cfg.camera.baseline
+    tracked = frame_mp >= 0
+    close = feats.valid & (feats.depth > 0) & (feats.depth < close_th)
+    K, F, P, O = state.caps
+    kf_mp = state.kf_mp[ref_kf]
+    kvalid = kf_mp >= 0
+    if use_min_obs_gate:
+        n_obs = state.mp_n_obs()[kf_mp.long().clamp(0, P - 1)]
+        kvalid = kvalid & (n_obs >= 3)
+    return torch.stack([torch.sum(close & tracked), torch.sum(close & ~tracked),
+                        torch.sum(kvalid)]).to(torch.int32)
+
+
+@torch.no_grad()
 def track_frame_step(state: ms.MapState, feats: FrameFeatures,
                      prev_feats: FrameFeatures, prev_frame_mp, ref_kf: int,
                      last_q, last_t, vel_q, vel_t, has_velocity: bool,
@@ -287,27 +308,10 @@ def track_frame_step(state: ms.MapState, feats: FrameFeatures,
             frame_mp=torch.where(ok, tr2.frame_mp, tr.frame_mp),
             n_inliers=torch.where(ok, tr2.n_inliers, tr.n_inliers))
 
-    # keyframe-decision counters (NeedNewKeyFrame)
-    close_th = tcfg.th_depth * cfg.camera.baseline
-    tracked = out.frame_mp >= 0
-    close = feats.valid & (feats.depth > 0) & (feats.depth < close_th)
-    tracked_close = torch.sum(close & tracked)
-    untracked_close = torch.sum(close & ~tracked)
-
-    # reference-KF tracked count (min obs 3 once the map has > 2 KFs)
-    K, F, P, O = state.caps
-    kf_mp = state.kf_mp[ref_kf]
-    kvalid = kf_mp >= 0
-    if use_min_obs_gate:
-        n_obs = state.mp_n_obs()[kf_mp.long().clamp(0, P - 1)]
-        ref_matches = torch.sum(kvalid & (n_obs >= 3))
-    else:
-        ref_matches = torch.sum(kvalid)
-
-    decision = torch.stack([ok.to(torch.int32), out.n_inliers.to(torch.int32),
-                            tracked_close.to(torch.int32),
-                            untracked_close.to(torch.int32),
-                            ref_matches.to(torch.int32)])
+    decision = torch.cat([
+        torch.stack([ok.to(torch.int32), out.n_inliers.to(torch.int32)]),
+        keyframe_counters(state, feats, out.frame_mp, ref_kf,
+                          use_min_obs_gate, cfg)])
 
     # velocity update (Tcw_cur * Twc_last) for the next frame's prediction
     new_vel_q, new_vel_t = se3.relative(out.q, out.t, last_q, last_t)
@@ -602,7 +606,8 @@ def _triangulate_pair_core(state: ms.MapState, kf1: int, kf2: int, mp_base,
 @torch.no_grad()
 def keyframe_pipeline_step(state: ms.MapState, feats: FrameFeatures, q, t,
                            frame_mp, frame_id, agent, map_id, kf_slot: int,
-                           mp_base: int, cfg: SlamConfig, run_local_ba: bool):
+                           mp_base: int, cfg: SlamConfig, run_local_ba: bool,
+                           agent_seq: torch.Tensor):
     """Everything that happens when a keyframe is spawned:
 
       CreateNewKeyFrame -> CreateNewMapPoints over the top covisible
@@ -617,6 +622,9 @@ def keyframe_pipeline_step(state: ms.MapState, feats: FrameFeatures, q, t,
     way: the reference erases redundant keyframes one at a time, recomputing
     redundancy in between; this computes redundancy for all candidates from
     the same post-BA state and erases up to 3 at once.
+
+    `agent_seq` is the keyframes' creation sequence of the culling's age
+    test (mapping.cull_points_step).
 
     Returns (state, frame_mp [F], q_kf, t_kf, n_new_points,
              cull_vec [3, 9] float32 rows (slot, parent, rel_q(4), rel_t(3)),
@@ -655,7 +663,7 @@ def keyframe_pipeline_step(state: ms.MapState, feats: FrameFeatures, q, t,
             cursor = cursor + n_tri
 
     # 3. local-mapping hygiene
-    state = mapping.cull_points_step(state, kf_slot, cfg)
+    state = mapping.cull_points_step(state, kf_slot, cfg, agent_seq)
 
     for nkf, okp in zip(neighbors, nb[2]):
         if okp:
@@ -883,6 +891,23 @@ class VOTrackResult(NamedTuple):
     frame_mp: torch.Tensor       # [F] point slot per feature (VO excluded)
     n_inliers: torch.Tensor      # all inliers (map + VO)
     n_map_inliers: torch.Tensor  # inliers tied to real map points
+
+
+@torch.no_grad()
+def best_covisible_kf(state: ms.MapState, frame_mp):
+    """The keyframe that observes the most of the frame's map points, the
+    lowest slot among equals, or -1 where none does: the reference's
+    UpdateLocalKeyFrames makes it the reference keyframe (pKFmax). A 0-d
+    int64 tensor; integer counts, the same on every run, and no host wait
+    (bincount would read its input's maximum back)."""
+    K, F, P, O = state.caps
+    kfs = state.mp_obs_kf[frame_mp.long().clamp(0, P - 1)]      # [F, O]
+    kfs = torch.where((frame_mp >= 0)[:, None] & (kfs >= 0), kfs.long(),
+                      torch.full_like(kfs, K, dtype=torch.int64)).reshape(-1)
+    counts = torch.zeros(K + 1, dtype=torch.int64, device=kfs.device)
+    counts = counts.index_add_(0, kfs, torch.ones_like(kfs))[:K]
+    n, best = torch.max(counts, 0)
+    return torch.where(n > 0, best, torch.full_like(best, -1))
 
 
 @torch.no_grad()

@@ -23,6 +23,7 @@ from ..ops import frame as frame_mod
 from ..vocab import bow as bow_mod
 from ..vocab import kfdb as kfdb_mod
 from . import loop_closing as lc
+from . import mapping
 from . import reloc as reloc_mod
 from .tracker import (SharedMap, Tracker, TrackerState, _np_inverse,
                       _np_normalize)
@@ -192,6 +193,13 @@ class System:
                        for k in np.nonzero(valid & (seq >= 0))[0]}
         floor = int(seq.max()) + 1 if (seq >= 0).any() else 0
         sh.n_created = max(floor, int(meta.get("n_created", 0)))
+        # one tracker continues the restored map: the creation uids are its
+        # ordinals, and its next keyframes follow them
+        agent = self.tracker.agent
+        sh.kf_agent_seq = torch.where(
+            state.kf_seq >= 0, state.kf_seq + agent * mapping.AGENT_SEQ_STRIDE,
+            state.kf_seq)
+        sh.n_created_of = {agent: sh.n_created}
         sh.free_kf = [int(k) for k in range(sh.n_kf) if not valid[k]]
         sh.pending_release = []
         # cull chains and trajectories belong to the session before the

@@ -55,6 +55,11 @@ class SharedMap:
     read. `n_kf` is the slot high-water mark and counts every agent's
     keyframes, dead slots included; the JAX package's keyframe-count gates
     read it.
+
+    `kf_agent_seq` [K] (device) holds each allocated slot's ordinal among
+    its agent's keyframe creations plus agent * mapping.AGENT_SEQ_STRIDE,
+    written without a wait; map-point culling counts a point's age in it
+    (mapping.cull_points_step).
     """
 
     def __init__(self, cfg: SlamConfig, device=torch.device("cuda")):
@@ -66,6 +71,9 @@ class SharedMap:
         self.n_created = 0     # total keyframes ever created (uid counter)
         self.kf_uid = np.full(cfg.caps.max_keyframes, -1, np.int64)
         self.kf_map_of = np.full(cfg.caps.max_keyframes, -1, np.int64)
+        self.kf_agent_seq = torch.full((cfg.caps.max_keyframes,), ms.NONE,
+                                       dtype=torch.int32, device=self.device)
+        self.n_created_of: dict[int, int] = {}   # agent -> its creations
         self.uid_slot: dict[int, int] = {}   # live uid -> slot
         self.free_kf: list[int] = []
         self.pending_release: list[int] = []
@@ -77,8 +85,8 @@ class SharedMap:
         # later erased
         self.cull_info: dict[int, tuple] = {}
 
-    def alloc_kf(self, map_id: int = 0) -> int:
-        """A slot for a new keyframe of map `map_id`."""
+    def alloc_kf(self, map_id: int = 0, agent: int = 0) -> int:
+        """A slot for a new keyframe of map `map_id`, made by `agent`."""
         if self.free_kf:
             slot = self.free_kf.pop()
         elif self.n_kf < self.cfg.caps.max_keyframes:
@@ -92,6 +100,10 @@ class SharedMap:
         self.kf_uid[slot] = uid
         self.uid_slot[uid] = slot
         self.kf_map_of[slot] = map_id
+        n_own = self.n_created_of.get(agent, 0)
+        self.n_created_of[agent] = n_own + 1
+        fill_at(self.kf_agent_seq, slot,
+                agent * mapping.AGENT_SEQ_STRIDE + n_own)
         self.state = self.state._replace(
             kf_seq=fill_at(self.state.kf_seq.clone(), slot, uid))
         return slot
@@ -359,18 +371,47 @@ class Tracker:
         """ActivateLocalizationMode / DeactivateLocalizationMode: in
         localization mode the map is frozen (no keyframes, no new map
         points, no local BA) and tracking adds temporal VO points,
-        unprojected from the last frame's depth, to the motion model."""
+        unprojected from the last frame's depth, to the motion model; the
+        reference keyframe follows the frame (best_covisible_kf), as the
+        reference's UpdateLocalKeyFrames moves it.
+
+        Leaving the mode, the last frame it tracked becomes a keyframe
+        where NeedNewKeyFrame (_need_new_keyframe, on that frame's local-map
+        counts) asks for one and the frame was tracked on the map, not on
+        VO points (ROADMAP.md, fault 13). The mode held back every
+        keyframe, so the map ends where the mode began; a camera that went
+        on past it finds too few of the map's points on the first frame out
+        of the mode (on the corridor 5 m past the last keyframe: 23
+        local-map inliers against the 30 tracking needs, the reference's
+        threshold too), loses track and resets a young map. The keyframe
+        maps the place the camera is at, and tracking goes on from it.
+        Neither the JAX package nor the C++ reference does this: the
+        reference's NeedNewKeyFrame declines in the mode and its next frame
+        out of it is tracked against the old map, as the JAX package's;
+        the JAX package's reference keyframe stays the last keyframe made."""
+        leaving = self.only_tracking and not on
+        was_vo = self.vo
         self.only_tracking = on
         if not on:
             self.vo = False
             self.last_vo_pw = None
             self.last_vo_mask = None
+        # _last_decision is the last frame's only when its local map ran
+        if leaving and self.state == TrackerState.OK and not was_vo \
+                and self._last_decision is not None \
+                and self._need_new_keyframe(self.last_feats, None):
+            tr = steps.TrackResult(self.last_q, self.last_t,
+                                   self.last_frame_mp, None)
+            self.last_frame_mp, self.last_q, self.last_t = \
+                self._create_keyframe(self.last_feats, tr)
 
     def _track_localization_only(self, feats, q_pred, t_pred):
         """One frame in localization mode. The host reads the device twice
         on a frame that tracks: the motion model's [n_inliers,
-        n_map_inliers] in one fetch (one more when the wide-window retry
-        runs) and the local map's inlier count; _record reads once more."""
+        n_map_inliers, best covisible keyframe] in one fetch (one more when
+        the wide-window retry runs) and the local map's inlier count with
+        NeedNewKeyFrame's counters (the decision vector, read when the mode
+        is left); _record reads once more."""
         sh = self.shared
         F = self.cfg.caps.max_features
         tcfg = self.cfg.tracking
@@ -384,26 +425,36 @@ class Tracker:
                 sh.state, feats, self.last_feats, self.last_frame_mp,
                 self.last_vo_pw, self.last_vo_mask, q_pred, t_pred, self.cfg,
                 radius_mult=radius_mult)
-            return tr, host_fetch(torch.stack([tr.n_inliers.to(torch.int32),
-                                               tr.n_map_inliers.to(
-                                                   torch.int32)]))
+            return tr, host_fetch(torch.stack([
+                tr.n_inliers.to(torch.int64), tr.n_map_inliers.to(torch.int64),
+                steps.best_covisible_kf(sh.state, tr.frame_mp)]))
 
-        tr, (n_in, n_map) = motion_model(1.0)
+        tr, (n_in, n_map, best_kf) = motion_model(1.0)
         if n_in < tcfg.min_matches_motion_model:
-            tr, (n_in, n_map) = motion_model(2.0)
+            tr, (n_in, n_map, best_kf) = motion_model(2.0)
         ok = n_in >= 10      # the reference's 20 counts VO matches too
         # mbVO: fewer than 10 matches to real map points
         self.vo = bool(n_map < 10)
         frame_mp = tr.frame_mp
         q_cur, t_cur = tr.q, tr.t
         if ok and not self.vo:
+            # TrackLocalMap: the local map around the keyframe that shares
+            # the most points with the frame, which becomes the reference
+            if best_kf >= 0:
+                self.ref_kf = int(best_kf)
             tr2, new_state = steps.track_local_map_step(
                 sh.state, feats, tr.q, tr.t, tr.frame_mp, self.ref_kf,
                 self.cfg)
             sh.state = new_state
-            if int(host_fetch(tr2.n_inliers)) >= \
-                    tcfg.min_inliers_track_local_map:
+            decision = host_fetch(torch.cat([
+                torch.ones(1, dtype=torch.int32, device=self.device),
+                tr2.n_inliers.to(torch.int32).reshape(1),
+                steps.keyframe_counters(
+                    sh.state, feats, tr2.frame_mp, self.ref_kf,
+                    sh.n_kf_in_map(self.map_id) > 2, self.cfg)]))
+            if int(decision[1]) >= tcfg.min_inliers_track_local_map:
                 q_cur, t_cur, frame_mp = tr2.q, tr2.t, tr2.frame_mp
+                self._last_decision = decision
             else:
                 ok = False
 
@@ -446,7 +497,7 @@ class Tracker:
         if n_depth < 100:
             return False
         sh = self.shared
-        kf_slot = sh.alloc_kf(self.map_id)
+        kf_slot = sh.alloc_kf(self.map_id, self.agent)
         sh.state, frame_mp, n_new = steps.stereo_init_step(
             sh.state, feats, self.frame_id, self.agent, self.map_id,
             kf_slot, sh.mp_base(), self.cfg)
@@ -496,8 +547,8 @@ class Tracker:
             return False
 
         sh = self.shared
-        kf0 = sh.alloc_kf(self.map_id)
-        kf1 = sh.alloc_kf(self.map_id)
+        kf0 = sh.alloc_kf(self.map_id, self.agent)
+        kf1 = sh.alloc_kf(self.map_id, self.agent)
         sh.state, frame_mp, scale, n_pts = steps.mono_init_map_step(
             sh.state, ref_feats, feats, tv.q, tv.t, tv.points,
             tv.inliers & ok, torch.arange(F, dtype=torch.int32,
@@ -532,9 +583,9 @@ class Tracker:
     def _need_new_keyframe(self, feats, tr) -> bool:
         """Reference NeedNewKeyFrame, without the mapping-idle conditions
         (phases are synchronous here). All device counters come pre-packed
-        in the track_frame_step decision vector ([ok, n_inliers,
-        tracked_close, untracked_close, ref_kf_matches]): no device reads
-        here."""
+        in the decision vector ([ok, n_inliers, tracked_close,
+        untracked_close, ref_kf_matches]) of track_frame_step or of a
+        localization-mode frame: no device reads here."""
         tcfg = self.cfg.tracking
         frames_since = self.frame_id - self.last_kf_frame
         dec = self._last_decision
@@ -557,13 +608,13 @@ class Tracker:
         neighbour list inside the step, the new-point count and, when local
         BA ran, the cull report."""
         sh = self.shared
-        kf_slot = sh.alloc_kf(self.map_id)
+        kf_slot = sh.alloc_kf(self.map_id, self.agent)
         run_ba = bool(self.run_local_ba and sh.n_kf_in_map(self.map_id) >= 3)
         (sh.state, frame_mp, q_kf, t_kf, n_new,
          cull_vec) = steps.keyframe_pipeline_step(
             sh.state, feats, tr.q, tr.t, tr.frame_mp, self.frame_id,
             self.agent, self.map_id, kf_slot, sh.mp_base(), self.cfg,
-            run_ba)
+            run_ba, sh.kf_agent_seq)
         n_comp = sh.n_compactions
         sh.commit_mp(int(host_fetch(n_new)))
         if sh.n_compactions != n_comp:

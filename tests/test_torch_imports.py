@@ -1,7 +1,7 @@
 """The port stands alone: no module of multiagent_orb_slam2_tpu_torch/ (the
 multi-agent server and its drivers, the two-view initializer, the
-rectifier, the vocabulary trainer, the scale-out package, the visualizer
-and the native loader among them), not chip_smoke.py and not the fixtures
+rectifier, the vocabulary trainers, the scale-out package, the visualizer,
+the native loader and the five-trial protocol among them), not chip_smoke.py and not the fixtures
 it and the spawned ranks import imports jax or anything of
 multiagent_orb_slam2_tpu. Importing the scale-out package starts no
 process group."""
@@ -45,7 +45,9 @@ def test_no_jax_imports_in_port_sources():
                  "parallel/__init__.py", "parallel/mesh.py",
                  "parallel/multihost.py", "parallel/dist_ba.py",
                  "parallel/multichip.py", "parallel/dryrun.py",
-                 "viz/__init__.py", "viz/plot.py", "io/native_loader.py"):
+                 "viz/__init__.py", "viz/plot.py", "io/native_loader.py",
+                 "analysis/collect_results.py",
+                 "analysis/train_offline_vocab.py"):
         assert PORT / name in files, name
     offenders = [(str(f.relative_to(ROOT)), name)
                  for f in files for name in _imports(f) if _bad(name)]

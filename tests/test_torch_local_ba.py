@@ -156,7 +156,8 @@ def test_local_mapping_pass(world):
     _, shared, _, jstate = world
     c = shared.n_kf - 1
     jm = jmapping.local_mapping_pass(jstate, c, CFG)
-    tm = tmapping.local_mapping_pass(shared.state, c, TCFG)
+    tm = tmapping.local_mapping_pass(shared.state, c, TCFG,
+                                     shared.state.kf_seq)
     assert_states_match(jm, tm, int_share=0.999, atol=1e-5, float_share=0.999)
     np.testing.assert_array_equal(tm.covis.numpy(), np.asarray(jm.covis))
 
@@ -175,7 +176,7 @@ def test_keyframe_pipeline_step_with_local_ba(world):
         tr.last_t, tr.vel_q, tr.vel_t, tr.has_velocity, True, TCFG)
     out_t = tsteps.keyframe_pipeline_step(
         tstate, cur, tr_out.q, tr_out.t, tr_out.frame_mp, 8, 0, 0, slot, base,
-        TCFG70, True)
+        TCFG70, True, kf_seq)
     out_j = jsteps.keyframe_pipeline_step(
         jstate, jax_feats_from_torch(cur), t2j(tr_out.q), t2j(tr_out.t),
         t2j(tr_out.frame_mp), 8, 0, 0, slot, base, CFG70, True)

@@ -1,8 +1,13 @@
 """Localization-only mode in the port against the JAX package, on the
 seed-7 stereo corridor of tests/test_tracking.py.
 
-One JAX run (module fixture): the JAX tracker maps frames 0-9, then tracks
-frames 10-19 in localization mode; the inputs of its frame 10 are kept.
+One JAX run (module fixture): the JAX tracker maps frames 0-9, tracks
+frames 10-19 in localization mode, then leaves it for frames 20-29; the
+inputs of its frame 10 are kept. In the mode the JAX tracker's reference
+keyframe follows the frame as the port's does (jax_views.
+best_covisible_reference: the keyframe observing most of the frame's map
+points, the reference's UpdateLocalKeyFrames); the JAX package keeps the
+last keyframe made, which on this clip differs on frames 16, 17 and 19.
 
 - make_vo_points on frame 9's features, none of them on a map point, with
   tied depths beyond the close band (so the 100-closest rank decides, and
@@ -16,10 +21,23 @@ frames 10-19 in localization mode; the inputs of its frame 10 are kept.
   same frames, mapping 0-9 and localizing 10-19: no keyframe or point
   created, every MapState field bit-equal to the mapped state except
   mp_visible and mp_found (track_local_map_step still counts those, as the
-  reference does), no frame lost, the ATE under the JAX test's 0.08 m, the
-  camera centres within 2 mm of the JAX run's; leaving the mode clears the
-  VO state.
+  reference does), no frame lost, the ATE under the JAX test's 0.08 m; on
+  every frame of 0-19 the JAX run's reference keyframe, and the camera
+  centre within 2 mm of the JAX run's; leaving the mode clears the VO state.
+- Fault 13 (ROADMAP.md queue 3), the deviation asserted: leaving the mode,
+  the port makes the last frame it tracked in the mode a keyframe (frame
+  19, on the same map; NeedNewKeyFrame asks for one there), the JAX package
+  makes none; out of the mode the port then maps on without a reset, every
+  frame of 20-29 tracked, camera centres within the same 0.08 m of the
+  truth.
+- That keyframe is NeedNewKeyFrame's to make, and never on a VO-tracked
+  frame: the port's tracker maps 0-9 (a keyframe at 9), tracks frame 10 in
+  the mode and leaves: labelled max_frames_between_kf frames after the last
+  keyframe, a keyframe at it; the same with the tracker in VO state
+  (set by hand), none; labelled 10, none.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -33,10 +51,11 @@ from multiagent_orb_slam2_tpu_torch.runtime import steps as tsteps
 from multiagent_orb_slam2_tpu_torch.runtime import tracker as ttr
 from multiagent_orb_slam2_tpu_torch.runtime.tracker import _np_inverse
 
+from jax_views import best_covisible_reference
 from torch_parity import (CFG, TCFG, sequence, threads, torch_feats_from_jax,
                           torch_state_from_jax)
 
-N_FRAMES, N_MAP = 20, 10
+N_FRAMES, N_MAP, N_END = 30, 10, 20
 
 
 def _centres(trajectory):
@@ -55,7 +74,14 @@ def jax_run():
                 prev_mp=tracker.last_frame_mp, q=tracker.last_q,
                 t=tracker.last_t)
     tracker.set_localization_mode(True)
-    for i, (left, right) in enumerate(frames[N_MAP:], start=N_MAP):
+    with best_covisible_reference(tracker, jsteps):
+        for i, (left, right) in enumerate(frames[N_MAP:N_END], start=N_MAP):
+            tracker.track_stereo(left, right, frame_id=i)
+    kept["vo"] = tracker.vo
+    kept["created"] = tracker.shared.n_created
+    tracker.set_localization_mode(False)
+    kept["created_on_leaving"] = tracker.shared.n_created - kept["created"]
+    for i, (left, right) in enumerate(frames[N_END:], start=N_END):
         tracker.track_stereo(left, right, frame_id=i)
     return tracker, kept, frames, t_wc
 
@@ -116,7 +142,7 @@ def test_track_motion_model_vo_step_matches_jax(jax_run, radius_mult):
 
 @pytest.mark.e2e
 def test_localization_only_mode(jax_run):
-    jt, _, frames, t_wc = jax_run
+    jt, kept, frames, t_wc = jax_run
     shared = ttr.SharedMap(TCFG, device="cpu")
     tracker = ttr.Tracker(TCFG, shared, device="cpu")
     with threads(2):
@@ -125,7 +151,8 @@ def test_localization_only_mode(jax_run):
         n_kf, n_mp, n_created = shared.n_kf, shared.n_mp, shared.n_created
         before = shared.state
         tracker.set_localization_mode(True)
-        for i, (left, right) in enumerate(frames[N_MAP:], start=N_MAP):
+        for i, (left, right) in enumerate(frames[N_MAP:N_END],
+                                          start=N_MAP):
             tracker.track_stereo(left, right, frame_id=i)
 
     # the map did not grow, nor change
@@ -139,12 +166,74 @@ def test_localization_only_mode(jax_run):
     assert not any(r.lost for r in tracker.trajectory), \
         [i for i, r in enumerate(tracker.trajectory) if r.lost]
     est = _centres(tracker.trajectory)
-    ate = np.sqrt(np.mean(np.sum((est - t_wc) ** 2, axis=-1)))
+    ate = np.sqrt(np.mean(np.sum((est - t_wc[:N_END]) ** 2, axis=-1)))
     assert ate < 0.08, f"localization-mode ATE {ate:.4f} m"
-    assert np.abs(est - _centres(jt.trajectory)).max() < 2e-3
-    assert tracker.vo == jt.vo
+    assert [r.ref_kf for r in tracker.trajectory] == \
+        [r.ref_kf for r in jt.trajectory[:N_END]]
+    assert np.abs(est - _centres(jt.trajectory[:N_END])).max() < 2e-3
+    assert tracker.vo == kept["vo"]
 
-    # leaving localization mode resumes mapping
+    # leaving localization mode: the last frame of the mode becomes a
+    # keyframe of the same map (the JAX tracker makes none), the VO state
+    # is cleared, and mapping goes on from it without a reset
     tracker.set_localization_mode(False)
     assert not tracker.only_tracking
     assert tracker.last_vo_pw is None and not tracker.vo
+    assert kept["created_on_leaving"] == 0
+    assert shared.n_created == n_created + 1
+    kf = tracker.ref_kf
+    assert int(shared.state.kf_frame_id[kf]) == N_END - 1
+    assert int(shared.state.kf_map[kf]) == tracker.map_id
+    with threads(2):
+        for i, (left, right) in enumerate(frames[N_END:], start=N_END):
+            tracker.track_stereo(left, right, frame_id=i)
+    assert tracker.n_resets == 0
+    assert not any(r.lost for r in tracker.trajectory[N_END:])
+    est = _centres(tracker.trajectory)
+    assert np.sqrt(np.mean(np.sum((est[N_END:] - t_wc[N_END:]) ** 2,
+                                  axis=-1))) < 0.08
+
+
+@pytest.fixture(scope="module")
+def port_mapped():
+    """The port's SharedMap and tracker (CPU) after mapping frames 0-9,
+    and the frames."""
+    frames, _ = sequence(N_FRAMES)
+    shared = ttr.SharedMap(TCFG, device="cpu")
+    tracker = ttr.Tracker(TCFG, shared, device="cpu")
+    with threads(2):
+        for i, (left, right) in enumerate(frames[:N_MAP]):
+            tracker.track_stereo(left, right, frame_id=i)
+    return shared, frames
+
+
+@pytest.mark.parametrize("case", ["after_max_frames", "vo", "next_frame"])
+def test_leaving_the_mode_keyframe_follows_need_new_keyframe(port_mapped,
+                                                             case):
+    """Fault 13's keyframe on leaving the mode is NeedNewKeyFrame's to make,
+    on the last frame of the mode, and never on a VO-tracked frame: one
+    frame in the mode, frame 10, labelled max_frames_between_kf frames
+    after the last keyframe (c1a holds): a keyframe at it; the same with
+    the tracker in VO state (mbVO): none; labelled as the next frame, with
+    a keyframe at frame 9 (NeedNewKeyFrame declines): none."""
+    shared0, frames = port_mapped
+    shared = copy.deepcopy(shared0)
+    tracker = shared.trackers[0]
+    assert tracker.last_kf_frame == N_MAP - 1
+    frame_id = N_MAP if case == "next_frame" else \
+        tracker.last_kf_frame + TCFG.tracking.max_frames_between_kf
+    created = shared.n_created
+    tracker.set_localization_mode(True)
+    with threads(2):
+        tracker.track_stereo(*frames[N_MAP], frame_id=frame_id)
+    assert tracker.state == ttr.TrackerState.OK and not tracker.vo
+    assert int(tracker._last_decision[1]) >= \
+        TCFG.tracking.min_inliers_track_local_map
+    if case == "vo":
+        tracker.vo = True
+    tracker.set_localization_mode(False)
+    made = shared.n_created - created
+    assert made == (case == "after_max_frames"), made
+    if made:
+        assert int(shared.state.kf_frame_id[tracker.ref_kf]) == frame_id
+        assert tracker.last_kf_frame == frame_id

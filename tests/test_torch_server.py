@@ -14,8 +14,12 @@ package's features).
   and the (moved, candidate) pairs equal, the state after it as above. The
   port moves live keyframes only; the JAX package also walks culled slots
   that still carry the map's label, whose rows are asserted empty.
-- The whole run: one map in both, the same fusions (agent, map ids, query
-  and match keyframes), the match's Sim3 within 1e-4; after the global BA
+- The whole run (the port drawing the JAX package's Sim3 RANSAC samples):
+  one map in both, the same fusions (agent, map ids, query and match
+  keyframes), each of the port's matches within 1e-4 of the JAX run's and
+  within 1e-4 of the JAX package's compute_sim3 on the state the port
+  computed it on (torch_server_cases.assert_fusions_match); after the
+  global BA
   the fused keyframes' ATE under 0.12 m (the JAX test's bound) and within
   10 % or 2 mm of the JAX run's, whichever is larger (CG is chaotic in
   float32, so global BA is held by outcome). The stats rows: ckf counts
@@ -213,7 +217,7 @@ def test_two_agents_fuse_like_jax(two_agents):
     r = two_agents
     assert r.js.multimap.n_maps == r.ts.multimap.n_maps == 1
     assert len(r.tevents) == len(r.jevents) >= 1
-    cases.assert_fusions_match(r.jevents, r.tevents)
+    cases.assert_fusions_match(r.jevents, r.tevents, r.jv)
     j_ate = cases.keyframe_ate(jax_fields(r.js.shared.state), r.windows,
                                r.t_wc)
     t_ate = cases.keyframe_ate(convert.map_state_to_numpy(r.ts.shared.state),
@@ -297,7 +301,7 @@ def test_unmodified_jax_matches_until_gates_differ(two_agents):
             cut.append(tick)
         return bool(cut)
 
-    cases.run(js, c.jframes, c.windows, own_gates=False, stop=stop,
+    cases.run(js, c.jframes, c.windows, views=False, stop=stop,
               centres=jcentres)
     assert cut == [9]
     assert sorted(jcentres) == [(0, i) for i in range(9)] + [(1, 0)]

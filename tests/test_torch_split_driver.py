@@ -11,8 +11,9 @@ protocol, against the JAX package's.
   by the JAX driver on the same files, camera centres within 2 mm; the
   same stats.csv (its header, the JAX write_fusion_stats header); the
   returned final_maps / fusions / relocalizations equal to the JAX
-  driver's. A clip this short ends with two maps in both packages (fusion
-  needs the corridor's revisit).
+  driver's. The two halves fuse at the hand-over into one map in both
+  packages (before fault 11 was repaired, agent 1's keyframes culled agent
+  0's young map and the clip ended with two maps).
 - two_seq on two 6-frame sequences: the same outputs as the JAX driver's,
   and final maps and fusions equal to what it prints.
 - write_fusion_stats: the same file as the JAX package's for the same
@@ -47,7 +48,7 @@ from multiagent_orb_slam2_tpu_torch.drivers import two_seq
 from multiagent_orb_slam2_tpu_torch.io import datasets
 from multiagent_orb_slam2_tpu_torch.io import trajectory as ttraj
 
-from torch_parity import own_map_gates
+from torch_parity import port_views
 
 torch.set_num_threads(1)   # several test workers share few cores
 
@@ -103,36 +104,45 @@ def test_collect_synthetic_split_table(protocol):
     assert row["agent0"]["n"] == 6 and row["agent1"]["n"] >= 3
 
 
-def _jax_gates_own_map(monkeypatch):
-    """The JAX drivers' trackers count their own map's keyframes at the two
-    keyframe-count gates, as the port's do (torch_parity.OwnMapGates;
-    ROADMAP.md queue 3, fault 9)."""
+def _jax_port_views(monkeypatch):
+    """The JAX drivers' trackers take the port's repairs
+    (torch_parity.port_views): they count their own map's keyframes at the
+    two keyframe-count gates (fault 9) and age map points in their own
+    agent's keyframes (fault 11; ROADMAP.md queue 3)."""
     real = JServer.register_client
 
     def register_client(self, agent):
-        return own_map_gates(self, real(self, agent))
+        return port_views(self, real(self, agent))
     monkeypatch.setattr(JServer, "register_client", register_client)
 
 
 @pytest.mark.e2e
 def test_split_driver_matches_jax(protocol, tmp_path, monkeypatch):
-    """The port's split against the JAX driver's with the reference's
-    keyframe-count gates: the same summary, the same frames exported,
-    camera centres within 2 mm, the same stats.csv."""
+    """The port's split against the JAX driver's with the port's repairs
+    (port_views): the same summary, the same frames exported, camera
+    centres within 2 mm, stats.csv with the same header and, row for row
+    (one a fusion), the same keyframe and point counts of the two maps
+    (the other columns are the packages' times)."""
     work, row = protocol
     out = os.path.join(work, "split0")
     _small_settings(monkeypatch)
-    _jax_gates_own_map(monkeypatch)
+    _jax_port_views(monkeypatch)
     seq = os.path.join(work, "seq0")
     want = jsplit.main(["-t", "stereo_synth", "-n", "2", "-d", seq,
                         "-s", os.path.join(seq, "settings.json"),
                         "-o", str(tmp_path)])
     got = {k: row["split"][k] for k in want}
-    assert got == want and want["final_maps"] == 2
+    assert got == want and (want["final_maps"], want["fusions"]) == (1, 1)
     subs = datasets.load_synth_stereo(seq).split(2)
     _same_trajectories(out, str(tmp_path), [len(s) for s in subs])
-    assert open(os.path.join(out, "stats.csv")).read() == \
-        open(tmp_path / "stats.csv").read()
+    rows = [open(path).read().splitlines() for path in
+            (os.path.join(out, "stats.csv"), tmp_path / "stats.csv")]
+    assert rows[0][0] == rows[1][0] and len(rows[0]) == len(rows[1]) == 2
+    header = rows[0][0].split(",")
+    counts = [header.index(k) for k in ("ckf", "cmp", "mkf", "mmp")]
+    for got_row, want_row in zip(rows[0][1:], rows[1][1:]):
+        got_row, want_row = got_row.split(","), want_row.split(",")
+        assert [got_row[i] for i in counts] == [want_row[i] for i in counts]
 
 
 @pytest.mark.e2e
@@ -173,7 +183,7 @@ def test_two_seq_matches_jax(protocol, tmp_path, monkeypatch, capsys):
     work, _ = protocol
     seq = os.path.join(work, "seq0")
     _small_settings(monkeypatch)
-    _jax_gates_own_map(monkeypatch)
+    _jax_port_views(monkeypatch)
     argv = ["-t", "stereo_synth", "-d1", seq, "-d2", seq, "-s",
             os.path.join(seq, "settings.json"), "--max-frames", "6"]
     got = two_seq.main(argv + ["-o", str(tmp_path / "t"), "--device", "cpu"])
@@ -253,12 +263,13 @@ def test_unported_sensors_raise(kind, tmp_path):
     before the port had them, now run through run_server: two agents on 12
     frames of the corridor (6 an agent) at the small capacities. RGB-D: a
     TUM-layout clip of the first 12 frames' left images and the renderer's
-    depth; every frame of both agents is tracked. Mono: the left images of
-    every third frame (the corridor's 3.6 cm a frame give too little
-    parallax for two views); each agent keeps its first frame as the
-    two-view reference, initializes from a later one and ends tracking on
-    its own map (an agent that loses its young map resets and initializes
-    again on a fresh map id, as the server does)."""
+    depth; every frame of both agents is tracked, and the two maps fuse at
+    the hand-over (they ended apart before fault 11 was repaired). Mono:
+    the left images of every third frame (the corridor's 3.6 cm a frame
+    give too little parallax for two views); each agent keeps its first
+    frame as the two-view reference, initializes from a later one and ends
+    tracking on its own map (an agent that loses its young map resets and
+    initializes again on a fresh map id, as the server does)."""
     n = 12
     q, t = make_synth_seq.loop_trajectory(660, 1.0, 24.0, seed=0)
     step = 3 if kind == "mono_kitti" else 1
@@ -278,7 +289,8 @@ def test_unported_sensors_raise(kind, tmp_path):
         server, summary = generic_split_seq.run_server(
             seq.split(2), kind, str(tmp_path / "seq" / "settings.json"), "",
             str(out), "cpu")
-    assert summary["final_maps"] == 2 and summary["fusions"] == 0
+    assert (summary["final_maps"], summary["fusions"]) == \
+        ((1, 1) if kind == "rgbd_tum" else (2, 0))
     st = server.shared.state
     for a in (0, 1):
         rows = ttraj.read_tum(str(out / f"SLAM{a}.txt"))
@@ -291,4 +303,5 @@ def test_unported_sensors_raise(kind, tmp_path):
         mine = (st.kf_agent == a) & st.kf_valid
         assert int(mine.sum()) >= 2
         assert set(st.kf_map[mine].tolist()) == {tracker.map_id}
-    assert server.trackers[0].map_id != server.trackers[1].map_id
+    assert (server.trackers[0].map_id == server.trackers[1].map_id) == \
+        (kind == "rgbd_tum")

@@ -74,7 +74,7 @@ def test_keyframe_pipeline_step(world):
         tr.last_t, tr.vel_q, tr.vel_t, tr.has_velocity, True, TCFG)
     out_t = tsteps.keyframe_pipeline_step(
         tstate, cur, tr_out.q, tr_out.t, tr_out.frame_mp, 4, 0, 0, slot, base,
-        TCFG, False)
+        TCFG, False, kf_seq)
     out_j = jsteps.keyframe_pipeline_step(
         jstate, jax_feats_from_torch(cur), t2j(tr_out.q), t2j(tr_out.t),
         t2j(tr_out.frame_mp), 4, 0, 0, slot, base, CFG, False)
@@ -119,7 +119,8 @@ def test_mapping_steps(world):
     assert_states_match(jsteps.recompute_covisibility(jstate),
                         tsteps.recompute_covisibility(tstate))
     assert_states_match(jmapping.cull_points_step(jstate, 3, CFG),
-                        tmapping.cull_points_step(tstate, 3, TCFG))
+                        tmapping.cull_points_step(tstate, 3, TCFG,
+                                                  tstate.kf_seq))
     P = CFG.caps.max_points
     own = tstate.kf_mp[3]
     ids = torch.where(own >= 0, own.long(), torch.full_like(own, P).long())

@@ -19,6 +19,8 @@ from multiagent_orb_slam2_tpu.ops.frame import FrameFeatures as JFrameFeatures
 
 from multiagent_orb_slam2_tpu_torch import convert
 
+from jax_views import OwnAgentAges, OwnMapGates, port_views  # noqa: F401
+
 # the suite runs several worker processes on few cores: one intra-op thread
 # per process, or the workers' thread pools fight over the cores
 torch.set_num_threads(1)
@@ -156,47 +158,3 @@ def port_tracker_after(n_frames: int):
     for i in range(n_frames):
         tr.track_features(feats[i], i)
     return tr, shared, feats
-
-
-class OwnMapGates:
-    """A JAX tracker's view of its SharedMap whose `n_kf` is the number of
-    live keyframes of the tracker's own map (the reference's
-    Map::KeyFramesInMap), with a keyframe slot allocated and not yet
-    inserted counted, as the port's SharedMap.n_kf_in_map counts it. Every
-    other attribute is the SharedMap's. The JAX package's two keyframe-count
-    gates (the reference keyframe's minimum-observation gate and the local-BA
-    gate) read the slot high-water mark `n_kf`, counting every agent's
-    keyframes and dead slots (ROADMAP.md queue 3, fault 9); through this
-    view a JAX run follows the reference, and the port's repaired gates can
-    be held against it run for run. The JAX package is not changed."""
-
-    def __init__(self, shared, map_of):
-        object.__setattr__(self, "_shared", shared)
-        object.__setattr__(self, "_map_of", map_of)
-        object.__setattr__(self, "_pending", None)
-
-    @property
-    def n_kf(self):
-        st = self._shared.state
-        valid = np.asarray(st.kf_valid)
-        n = int(np.sum((np.asarray(st.kf_map) == self._map_of()) & valid))
-        return n + int(self._pending is not None and not valid[self._pending])
-
-    def alloc_kf(self):
-        slot = self._shared.alloc_kf()
-        object.__setattr__(self, "_pending", slot)
-        return slot
-
-    def __getattr__(self, name):
-        return getattr(self._shared, name)
-
-    def __setattr__(self, name, value):
-        setattr(self._shared, name, value)
-
-
-def own_map_gates(server, tracker):
-    """Give a tracker of the JAX MultiAgentServer the reference's gates:
-    its map is the one the server's registry holds for its agent."""
-    tracker.shared = OwnMapGates(
-        tracker.shared, lambda: server.multimap.map_of(tracker.agent))
-    return tracker
