@@ -77,7 +77,15 @@ split phase's (``split:``, ``split checkpoint:``), the three-agent split's
 (``split3:``) and the K2 / K3 checks on
 the post-fusion global BA (``fusion GBA``), a ``band:`` line after each
 of the bench, corridor local BA and fusion K2 / K3 checks and a ``band,
-summary:`` line, one JSON object
+summary:`` line; then the counts read from the paths as they ran
+(``PathCounts``): ``local_map:`` (by path, each local-map tracking call's
+candidates, new matches, the matches won by a query >= F, which the port
+associated with the wrong point before ROADMAP.md fault 4 was repaired,
+and inliers; localization frames 29-30 and 48-51 one by one),
+``kfdb_words:`` (each keyframe's unique words and the words its database
+row keeps, fault 3) and ``stereo_in_bounds:`` (stereo candidates and
+those the SAD refinement's in-bounds term rejects, fault 5); one JSON
+object
 ``{"kernels": [...]}``, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +149,7 @@ from multiagent_orb_slam2_tpu_torch.runtime.tracker import (TrackerState,
 from multiagent_orb_slam2_tpu_torch.server import server as server_mod
 from multiagent_orb_slam2_tpu_torch.utils import cuda_build, torch_ops
 from multiagent_orb_slam2_tpu_torch.vocab import bow as bow_mod
+from multiagent_orb_slam2_tpu_torch.vocab import kfdb as kfdb_mod
 
 # the drifted ring the loop-closing phase closes (numpy + the port only)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1101,8 +1110,8 @@ def drive_path(frames, t_gt, local_ba: bool, vocab=None):
         return out
 
     # the loop path's keyframe database and loop closer: the database
-    # insert + query timed and its outputs kept (candidate masks, word ids,
-    # fetched after the path), consistent candidates, Sim3 attempts and
+    # insert + query timed and its candidate masks kept (fetched after the
+    # path), consistent candidates, Sim3 attempts and
     # accepted loops counted
     real_query = lc_mod._detect_loop_query
     if vocab is not None:
@@ -1117,7 +1126,7 @@ def drive_path(frames, t_gt, local_ba: bool, vocab=None):
             out = real_query(*a, **kw)
             torch.cuda.synchronize()
             phase_ms["kfdb"][-1] += (time.perf_counter() - t) * 1e3
-            loop["queries"].append((out[1], out[2], out[3]))
+            loop["queries"].append(out[1])
             return out
 
         def detect(*a, **kw):
@@ -1315,17 +1324,12 @@ def loop_report(label, system, loop, phase_ms, fetches, syncs, is_kf,
     """The loop path's own numbers, printed, and its gate: the keyframe
     database holds every live keyframe and no culled one, and every keyframe
     created was registered and queried. Returns the problems found. The
-    candidate masks and word ids kept during the path are read here, after
-    it; the words that the database's 1024-word cap drops are counted here,
-    not in the package."""
+    candidate masks kept during the path are read here, after it; the
+    words each keyframe's database row keeps are in the `kfdb_words:`
+    line (PathCounts)."""
     shared, closer = system.shared, system.loop_closer
     n_q = len(loop["queries"])
-    M = closer.db.words.shape[1]
-    cands, dropped = [], []
-    for cand, words, valid in loop["queries"]:
-        cands.append(int(cand.sum()))
-        n_unique = torch.unique(words[valid & (words >= 0)]).numel()
-        dropped.append(max(0, n_unique - M))
+    cands = [int(cand.sum()) for cand in loop["queries"]]
     n = shared.n_kf
     active = closer.db.active[:n].cpu().numpy()
     valid = shared.state.kf_valid[:n].cpu().numpy()
@@ -1347,9 +1351,7 @@ def loop_report(label, system, loop, phase_ms, fetches, syncs, is_kf,
             report["host_fetches_per_keyframe_frame_median"],
         "device_syncs_per_keyframe_frame_median":
             report["device_syncs_per_keyframe_frame_median"],
-        "words_dropped_by_cap_per_keyframe_mean": float(np.mean(dropped)),
-        "words_dropped_by_cap_per_keyframe_max": max(dropped),
-        "kfdb_words_per_keyframe_cap": M}
+        "kfdb_row_width": closer.db.words.shape[1]}
     print(f"{label}, keyframe database and loop closing: " + json.dumps(out))
     print(f"{label}: ms per keyframe for KFDB registration and query "
           f"(median) {out['kfdb_register_query_ms_median']:.2f}; per keyframe "
@@ -1455,6 +1457,21 @@ def drive_ring(vocab):
                 ba_prep.compact_points.launches - before_l[2]}
         return out
 
+    # loop detection's survivors, as SLAM_RECALL_LOG records them (cand_pre,
+    # cand_post): candidates of each query past the refractory gates, and
+    # those the consistency filter keeps, which go to compute_sim3
+    recall = {"queries": 0, "candidates": 0, "consistent": 0}
+    real_detect = closer._detect
+
+    def detect(shared_, kf_slot, cand_mask, *a):
+        out = real_detect(shared_, kf_slot, cand_mask, *a)
+        recall["queries"] += 1
+        recall["candidates"] += int(cand_mask.sum())
+        recall["consistent"] += len(out)
+        return out
+    patched.append((closer, "_detect", real_detect))
+    closer._detect = detect
+
     real_gba = lc_mod.global_bundle_adjustment
     patched.append((lc_mod, "global_bundle_adjustment", real_gba))
     timed(lc_mod, "_detect_loop_query", "detect")
@@ -1514,6 +1531,7 @@ def drive_ring(vocab):
         "essential_graph_ms": sum(ms["essential_graph"]),
         "gba_ms": ms["gba"], **warm, "launches": launches,
         "gba_launches": gba["launches"],
+        "detection": {**recall, "sim3_attempts": len(ms["compute_sim3"])},
         "host_fetches": torch_ops.host_fetch_count(),
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20}
     print("ring: " + json.dumps(report))
@@ -2210,6 +2228,172 @@ class Patches:
         for owner, name, real in reversed(self.real):
             setattr(owner, name, real)
         self.real.clear()
+
+
+class PathCounts:
+    """Counts read from the paths as they run, kept on the card and read
+    after the script's paths (no host wait on a path). Each row goes under
+    the phase set in `phase` (None: not counted) and the frame in `frame`.
+
+    - `local_map`: one row per call of steps.track_local_map_step: the
+      candidate points, the new matches (features without a point that a
+      local-map query won), of those the ones won by a query >= F (which
+      the parent's association gave point ids[F - 1], ROADMAP.md fault 4),
+      and the inliers after the call's pose optimization;
+    - `kfdb`: one row per kfdb.add_keyframe: the keyframe's unique words
+      and the words its database row keeps (ROADMAP.md fault 3);
+    - `stereo`: one row per ops.frame.sad_subpixel_refine: the stereo
+      candidates and those whose left patch or right strip would leave the
+      image, which the in-bounds term rejects (ROADMAP.md fault 5)."""
+
+    def __init__(self):
+        self.phase, self.frame = None, None
+        self.rows = {"local_map": {}, "kfdb": {}, "stereo": {}}
+
+    def install(self, patches):
+        patches(steps_mod, "track_local_map_step", self._local_map)
+        patches(kfdb_mod, "add_keyframe", self._add_keyframe)
+        patches(frame_mod, "sad_subpixel_refine", self._sad)
+
+    def _keep(self, kind, row):
+        if self.phase is not None:
+            self.rows[kind].setdefault(self.phase, []).append(
+                (self.frame, torch.stack([x.to(torch.int64) for x in row])))
+
+    def _local_map(self, real):
+        def wrapper(state, feats, q, t, frame_mp, ref_kf, cfg):
+            if self.phase is None:
+                return real(state, feats, q, t, frame_mp, ref_kf, cfg)
+            got = {}
+            resolve, first_true = (matchers.resolve_conflicts,
+                                   steps_mod.first_true_indices)
+
+            def seen_resolve(res, n_feats, *a):
+                got["assign"], res = resolve(res, n_feats, *a)
+                return got["assign"], res
+
+            def seen_first_true(mask, n, fill):
+                got["cand"] = torch.sum(mask)
+                return first_true(mask, n, fill)
+
+            matchers.resolve_conflicts = seen_resolve
+            steps_mod.first_true_indices = seen_first_true
+            try:
+                out = real(state, feats, q, t, frame_mp, ref_kf, cfg)
+            finally:
+                matchers.resolve_conflicts = resolve
+                steps_mod.first_true_indices = first_true
+            fresh = (frame_mp < 0) & (got["assign"] >= 0)
+            self._keep("local_map", (
+                got["cand"], torch.sum(fresh),
+                torch.sum(fresh & (got["assign"] >= frame_mp.shape[0])),
+                out[0].n_inliers))
+            return out
+        return wrapper
+
+    def _add_keyframe(self, real):
+        def wrapper(db, vocab, kf_slot, desc, valid):
+            out = real(db, vocab, kf_slot, desc, valid)
+            words = out[1]
+            W = vocab.n_words
+            ws = torch.sort(torch.where(valid & (words >= 0), words,
+                                        torch.full_like(words, W))).values
+            unique = torch.sum((ws < W) & torch.cat(
+                [ws[:1] >= 0, ws[1:] != ws[:-1]]))
+            self._keep("kfdb", (unique,
+                                torch.sum(out[0].words[kf_slot] >= 0)))
+            return out
+        return wrapper
+
+    def _sad(self, real):
+        def wrapper(left_img, right_img, xy_l, x_r, valid, win=5, search=5):
+            inside = frame_mod.sad_window_inside(
+                torch.round(xy_l).to(torch.int32),
+                torch.round(x_r).to(torch.int32), left_img.shape[-2:], win,
+                search)
+            self._keep("stereo", (torch.sum(valid),
+                                  torch.sum(valid & ~inside)))
+            return real(left_img, right_img, xy_l, x_r, valid, win, search)
+        return wrapper
+
+    def read(self, kind, phase):
+        """[(frame, [numbers])] of one phase, on the host."""
+        rows = self.rows[kind].get(phase, [])
+        if not rows:
+            return []
+        vals = torch.stack([r for _, r in rows]).cpu().tolist()
+        return [(f, v) for (f, _), v in zip(rows, vals)]
+
+    def local_map_summary(self, phase, frames=()):
+        rows = self.read("local_map", phase)
+        if not rows:
+            return None
+        a = np.array([v for _, v in rows])
+        out = {"calls": len(rows),
+               **{f"{k}_median": float(np.median(a[:, i])) for i, k in
+                  enumerate(("candidates", "matches", "matches_past_f",
+                             "inliers"))},
+               "candidates_max": int(a[:, 0].max()),
+               "matches_past_f": int(a[:, 2].sum()),
+               "calls_with_matches_past_f": int((a[:, 2] > 0).sum())}
+        out.update({f"frame_{f}": dict(zip(
+            ("candidates", "matches", "matches_past_f", "inliers"), v))
+            for f, v in rows if f in frames})
+        return out
+
+    def kfdb_summary(self, phase):
+        rows = self.read("kfdb", phase)
+        if not rows:
+            return None
+        a = np.array([v for _, v in rows])
+        return {"keyframes_added": len(rows),
+                "unique_words_mean": float(a[:, 0].mean()),
+                "unique_words_max": int(a[:, 0].max()),
+                "words_kept_mean": float(a[:, 1].mean()),
+                "words_kept_max": int(a[:, 1].max()),
+                "words_dropped_mean": float((a[:, 0] - a[:, 1]).mean()),
+                "words_dropped_max": int((a[:, 0] - a[:, 1]).max())}
+
+    def stereo_summary(self, phase):
+        rows = self.read("stereo", phase)
+        if not rows:
+            return None
+        a = np.array([v for _, v in rows])
+        return {"frames": len(rows), "candidates": int(a[:, 0].sum()),
+                "rejected_out_of_bounds": int(a[:, 1].sum())}
+
+
+COUNTS = PathCounts()
+
+
+class counting:
+    """`with counting(phase):` a driven path's rows go under `phase`."""
+
+    def __init__(self, phase):
+        self.phase = phase
+
+    def __enter__(self):
+        COUNTS.phase, COUNTS.frame = self.phase, None
+
+    def __exit__(self, *exc):
+        COUNTS.phase, COUNTS.frame = None, None
+
+
+LOC_COUNTED_FRAMES = (29, 30, 48, 49, 50, 51)
+
+
+def print_path_counts(phases):
+    """The `local_map:`, `kfdb_words:` and `stereo_in_bounds:` lines of the
+    script's paths (PathCounts)."""
+    card = card_line()
+    for label, summary in (
+            ("local_map", lambda p: COUNTS.local_map_summary(
+                p, LOC_COUNTED_FRAMES)),
+            ("kfdb_words", COUNTS.kfdb_summary),
+            ("stereo_in_bounds", COUNTS.stereo_summary)):
+        rows = {p: summary(p) for p in phases}
+        print(f"{label}: " + json.dumps(
+            {p: r for p, r in rows.items() if r is not None}) + "; " + card)
 
 
 def timed(ms, key, cur=None, flag=None):
@@ -3147,6 +3331,7 @@ def drive_localization(frames, t_gt):
     system = system_mod.System(CFG, None, enable_loop_closing=False)
     tracker, shared = system.tracker, system.shared
     for i in range(LOC_MAP_FRAMES):
+        COUNTS.frame = i
         system.track_stereo(*frames[i], frame_id=i)
     torch.cuda.synchronize()
     before = {k: v.clone() for k, v in shared.state._asdict().items()}
@@ -3156,6 +3341,7 @@ def drive_localization(frames, t_gt):
 
     def track(i):
         j = LOC_MAP_FRAMES + i
+        COUNTS.frame = j
         system.track_stereo(*frames[j], frame_id=j)
         vo.append(bool(tracker.vo))
 
@@ -3173,6 +3359,7 @@ def drive_localization(frames, t_gt):
     system.deactivate_localization_mode()
     after_mode = []
     for j in range(LOC_END, n):
+        COUNTS.frame = j
         system.track_stereo(*frames[j], frame_id=j)
         dec = tracker._last_decision
         after_mode.append([j, tracker.state, shared.n_created]
@@ -3318,6 +3505,8 @@ def main():
                 if "Used" in ln or "spill" in ln]
         print(f"ptxas {name}: " + " | ".join(used))
 
+    COUNTS.install(Patches())
+
     # 3. kernels against their plain versions
     k1, probe = check_pose_kernel()
     k2_rows, systems = check_prep_kernel()
@@ -3330,8 +3519,9 @@ def main():
     # 4. the paths without a vocabulary: with local bundle adjustment, then
     # without it on the first frames of the same corridor
     frames, depths, t_gt = render_corridor(N_FRAMES_LOOP)
-    ba_launches, ba_report, solves = drive_path(
-        frames[:N_FRAMES_BA], t_gt[:N_FRAMES_BA], local_ba=True)
+    with counting("ba_path"):
+        ba_launches, ba_report, solves = drive_path(
+            frames[:N_FRAMES_BA], t_gt[:N_FRAMES_BA], local_ba=True)
     k2_real = prep_real_maps(solves)
     del solves
     torch.cuda.empty_cache()
@@ -3353,8 +3543,9 @@ def main():
     del depths
     mono_launches, mono_k1, mono_k2, mono_k3 = drive_mono(
         frames[:N_FRAMES_BA], t_gt[:N_FRAMES_BA], vocab)
-    loc_launches = drive_localization(frames[:N_FRAMES_BA],
-                                      t_gt[:N_FRAMES_BA])
+    with counting("localization"):
+        loc_launches = drive_localization(frames[:N_FRAMES_BA],
+                                          t_gt[:N_FRAMES_BA])
     check_rectify(frames)
     torch.cuda.empty_cache()
     print(f"sensor paths: {time.perf_counter() - t_sensors:.1f} s")
@@ -3364,13 +3555,15 @@ def main():
     # whole corridor; then a loop corrected with global BA on the drifted
     # ring; then global BA at the benchmark's size. K2 and K3 are held
     # against their plain versions on both global BAs' own problems
-    loop_launches, loop_report_, solves = drive_path(frames, t_gt,
-                                                     local_ba=True,
-                                                     vocab=vocab)
+    with counting("loop_path"):
+        loop_launches, loop_report_, solves = drive_path(frames, t_gt,
+                                                         local_ba=True,
+                                                         vocab=vocab)
     step_inputs = frontend_inputs(frames)
     del solves, frames
     torch.cuda.empty_cache()
-    ring_report, ring_prob, ring_launches = drive_ring(vocab)
+    with counting("ring"):
+        ring_report, ring_prob, ring_launches = drive_ring(vocab)
     ring_k2, ring_k3 = check_gba_kernels(
         "ring GBA", ring_prob, torch_loop_cases.CAM,
         steps_mod._ba_chunk(ring_prob.pw.shape[0]))
@@ -3404,8 +3597,9 @@ def main():
     # fused map, and K2 and K3 on the first post-fusion global BA's problem
     with tempfile.TemporaryDirectory() as work:
         seq_dir, render_s, workers = render_corridor_sequence(work)
-        system, corridor, corridor_launches, lba_prob = drive_corridor(
-            seq_dir, work, render_s, workers)
+        with counting("corridor"):
+            system, corridor, corridor_launches, lba_prob = drive_corridor(
+                seq_dir, work, render_s, workers)
         kidnap_report, kidnap_k1 = kidnap(system)
         checkpoint(system, work)
         cam = system.cfg.camera
@@ -3419,15 +3613,17 @@ def main():
             steps_mod._ba_chunk(lba_prob.pw.shape[0])))
         del lba_prob
         torch.cuda.empty_cache()
-        server, split, split_launches, fusion_prob = drive_split(seq_dir,
-                                                                 work)
+        with counting("split"):
+            server, split, split_launches, fusion_prob = drive_split(
+                seq_dir, work)
         checkpoint_fused(server, work)
         del server
         torch.cuda.empty_cache()
         # the same corridor between three agents (the reference's protocol
         # runs 2 to 4), each from a map of its own beside the others'
-        _, split3, split3_launches, _ = drive_split(seq_dir, work,
-                                                    n_agents=3)
+        with counting("split3"):
+            _, split3, split3_launches, _ = drive_split(seq_dir, work,
+                                                        n_agents=3)
     torch.cuda.empty_cache()
     fusion_k2, fusion_k3 = check_gba_kernels(
         "fusion GBA", fusion_prob, cam,
@@ -3442,6 +3638,8 @@ def main():
             "peak_mb_banded", "peak_mb_full", "cost_rel_diff")}
         for r in band_rows}) + "; " + card)
     del fusion_prob
+    print_path_counts(("ba_path", "localization", "loop_path", "ring",
+                       "corridor", "split", "split3"))
 
     # 7. the record: each kernel at the shape its main path gives it, its
     # launches read right after each path; K2 and K3 also at the two global

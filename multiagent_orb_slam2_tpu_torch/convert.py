@@ -130,7 +130,22 @@ def sim3_match_from_numpy(fields: dict, device) -> Sim3Match:
         n_matches=int(fields["n_matches"]))
 
 
-def kfdb_from_numpy(fields: dict, device) -> KFDatabase:
+def kfdb_from_numpy(fields: dict, device, width: int = None) -> KFDatabase:
+    """{"words", "wts", "active"} -> KFDatabase on `device`. With `width`
+    (the port's, caps.max_features) a row of another width, as the JAX
+    package's 1024, is padded with word -1 and weight 0, or cut where only
+    padding is cut (asserted)."""
+    fields = dict(fields)
+    words, wts = np.asarray(fields["words"]), np.asarray(fields["wts"])
+    M = words.shape[1]
+    if width is not None and width > M:
+        fields["words"] = np.pad(words, ((0, 0), (0, width - M)),
+                                 constant_values=-1)
+        fields["wts"] = np.pad(wts, ((0, 0), (0, width - M)))
+    elif width is not None and width < M:
+        assert (words[:, width:] < 0).all() and (wts[:, width:] == 0).all(), \
+            f"a row holds more than {width} words"
+        fields["words"], fields["wts"] = words[:, :width], wts[:, :width]
     return _from_numpy(KFDatabase, fields, device)
 
 

@@ -42,6 +42,16 @@ def from_keypoints(kp: orb.Keypoints, cfg: SlamConfig) -> FrameFeatures:
                          kp.valid, neg, neg)
 
 
+def sad_window_inside(xl, xr, shape, win: int = 5, search: int = 5):
+    """Whether the left patch around integer pixels xl [N, 2] and the right
+    strip around integer columns xr [N] on the same rows, x_r +- (win +
+    search), lie inside an image of `shape` (H, W)."""
+    H, W = shape
+    return ((xl[:, 0] >= win) & (xl[:, 0] < W - win)
+            & (xl[:, 1] >= win) & (xl[:, 1] < H - win)
+            & (xr >= win + search) & (xr < W - win - search))
+
+
 def sad_subpixel_refine(left_img, right_img, xy_l, x_r, valid,
                         win: int = 5, search: int = 5):
     """Batched SAD subpixel disparity refinement.
@@ -51,14 +61,18 @@ def sad_subpixel_refine(left_img, right_img, xy_l, x_r, valid,
     through the three SADs around the minimum for sub-pixel correction.
     Returns refined right-x and a validity mask.
 
-    The right-image strip is gathered once per match with its start clamped
-    to the edge-padded image, exactly as the JAX package does; a strip that
-    would leave the image is therefore shifted, not rejected.
+    A match whose left patch or right strip would leave the image is
+    rejected, as Frame::ComputeStereoMatches rejects it by its iniu / endu
+    test; here the whole strip, x_r +- (win + search), must lie in the
+    image (`sad_window_inside`). (The JAX package shifts such a strip
+    inside the image instead.) The keypoints' border (EDGE_THRESHOLD) keeps
+    both inside on an undistorted image, so there the term rejects nothing.
     """
     w = win
-    patch_l = orb.extract_patches(left_img, torch.round(xy_l).to(torch.int32), w)
-    xy_c = torch.stack([torch.round(x_r).to(torch.int32),
-                        torch.round(xy_l[:, 1]).to(torch.int32)], dim=-1)
+    xl = torch.round(xy_l).to(torch.int32)
+    patch_l = orb.extract_patches(left_img, xl, w)
+    xy_c = torch.stack([torch.round(x_r).to(torch.int32), xl[:, 1]], dim=-1)
+    inside = sad_window_inside(xl, xy_c[:, 0], left_img.shape[-2:], w, search)
     strip = orb.extract_patches_rect(right_img, xy_c, w, w + search)
     sad = torch.stack([
         torch.sum(torch.abs(strip[:, :, d:d + 2 * w + 1] - patch_l),
@@ -73,7 +87,8 @@ def sad_subpixel_refine(left_img, right_img, xy_l, x_r, valid,
     delta = (0.5 * (s_m - s_p) / denom).clamp(-1.0, 1.0)
     x_refined = torch.round(x_r) + (ctr - search).to(torch.float32) + delta
     # reject if the parabola is degenerate (flat) or best hit the border
-    ok = valid & (torch.abs(delta) <= 1.0) & (best > 0) & (best < 2 * search)
+    ok = valid & inside & (torch.abs(delta) <= 1.0) & (best > 0) \
+        & (best < 2 * search)
     return x_refined, ok
 
 

@@ -90,7 +90,8 @@ class LoopCloser:
     def __init__(self, cfg: SlamConfig, vocab: bow_mod.Vocabulary):
         self.cfg = cfg
         self.vocab = vocab
-        self.db = kfdb_mod.empty_database(cfg.caps.max_keyframes, vocab)
+        self.db = kfdb_mod.empty_database(cfg.caps.max_keyframes, vocab,
+                                          cfg.caps.max_features)
         self.consistency = LoopCandidateState(groups=[])
         self.last_loop_kf = -1e9
         # loop pairs stored by keyframe UID, not slot: slots are recycled

@@ -213,11 +213,12 @@ def track_local_map_step(state: ms.MapState, feats: FrameFeatures, q, t,
                                 th=cfg.matcher.th_high,
                                 nn_ratio=cfg.matcher.nn_ratio_tracking)
     frame_assign, res = matchers.resolve_conflicts(res, F)
-    # merge: keep existing associations, add new ones where free. The
-    # winning query index is clipped to F - 1 exactly as the JAX package
-    # clips it (runtime/steps.py:280), so both packages associate alike.
+    # merge: keep existing associations, add new ones where free. A feature
+    # takes the point of the query that won it, any of the LP queries, as
+    # SearchByProjection assigns every local point (the JAX package bounds
+    # the query by F - 1 and gives a win past it point ids[F - 1]).
     new_mp = _none_where(frame_assign >= 0,
-                         ids[frame_assign.clamp(0, F - 1)].to(torch.int32))
+                         ids[frame_assign.clamp(0, LP - 1)].to(torch.int32))
     frame_mp = torch.where(frame_mp >= 0, frame_mp, new_mp)
 
     obs = _pose_obs_from_frame(state, feats, frame_mp, cfg)

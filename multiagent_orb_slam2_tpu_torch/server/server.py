@@ -42,7 +42,8 @@ class MultiAgentServer:
         self.device = torch.device(device)
         self.shared = SharedMap(cfg, device=self.device)
         self.multimap = MultiMap()
-        self.db = kfdb_mod.empty_database(cfg.caps.max_keyframes, vocab)
+        self.db = kfdb_mod.empty_database(cfg.caps.max_keyframes, vocab,
+                                          cfg.caps.max_features)
         self.consistency: dict[int, list] = {}   # per-agent groups
         self.run_gba = run_gba
         self.trackers: dict[int, Tracker] = {}

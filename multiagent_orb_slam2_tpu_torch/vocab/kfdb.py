@@ -12,9 +12,12 @@ every row's word ids: O(K * M) work whatever the vocabulary's size. L1
 scoring uses the min form: for L1-normalized non-negative vectors,
 1 - 0.5 |v - w|_1 == sum_i min(v_i, w_i).
 
-A keyframe keeps at most M = ``max_words_per_kf`` (1024) unique words, the
-lowest ids; the rest are dropped without a count, as in the JAX package
-(``ROADMAP.md`` queue 3).
+A row holds M = ``max_words_per_kf`` unique words, the lowest ids first.
+The loop closer and the server pass ``caps.max_features``: a keyframe has no
+more unique words than valid features, so every word of its BoW vector is
+in the inverted file, as in the reference's KeyFrameDatabase::add. (The JAX
+package keeps at most 1024 and drops the rest, about 840 of 1,870 a
+keyframe at 2000 features.) A narrower M keeps the M lowest ids.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ class KFDatabase(NamedTuple):
 
 
 def empty_database(max_kf: int, vocab: Vocabulary,
-                   max_words_per_kf: int = 1024) -> KFDatabase:
-    """An empty database on the vocabulary's device."""
+                   max_words_per_kf: int) -> KFDatabase:
+    """An empty database on the vocabulary's device; `max_words_per_kf` at
+    least the keyframes' feature capacity keeps every word."""
     M, dev = max_words_per_kf, vocab.device
     return KFDatabase(
         words=torch.full((max_kf, M), -1, dtype=torch.int32, device=dev),

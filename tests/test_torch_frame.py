@@ -52,13 +52,23 @@ def test_compute_stereo_matches(stereo_inputs):
 
 
 def test_sad_refine_border_clamp(stereo_inputs):
-    """Matches whose strip would leave the image are shifted by the clamp,
-    in both packages alike (the JAX behaviour is reproduced, not repaired)."""
-    left, right, _, _ = stereo_inputs
+    """Fault 5 (ROADMAP.md queue 3), the port's departure from the JAX
+    package: a match whose left patch or right strip would leave the image
+    is rejected, as the reference's ComputeStereoMatches rejects it by its
+    iniu / endu test; the JAX package shifts the strip inside the image and
+    may keep the match (it keeps (317, 236) here). Inside the image both
+    packages agree: a real match of the frame (the last row) is kept by
+    both at the same right-x."""
+    left, right, kl, kr = stereo_inputs
+    fj = jframe.compute_stereo_matches(
+        jframe.from_keypoints(kl, CFG), kr, jnp.asarray(left),
+        jnp.asarray(right), CFG)
+    f = int(np.nonzero(np.asarray(fj.depth) > 0)[0][0])
     xy_l = np.array([[2.0, 3.0], [317.0, 236.0], [160.0, 120.0],
-                     [8.4, 100.6]], np.float32)
-    x_r = np.array([0.0, 319.0, 150.0, 3.5], np.float32)
-    valid = np.ones(4, bool)
+                     [8.4, 100.6], np.asarray(fj.xy)[f]], np.float32)
+    x_r = np.array([0.0, 319.0, 150.0, 3.5,
+                    np.round(np.asarray(fj.u_right)[f])], np.float32)
+    valid = np.ones(5, bool)
     xj, okj = jframe.sad_subpixel_refine(
         jnp.asarray(left), jnp.asarray(right), jnp.asarray(xy_l),
         jnp.asarray(x_r), jnp.asarray(valid))
@@ -66,8 +76,40 @@ def test_sad_refine_border_clamp(stereo_inputs):
         torch.from_numpy(left), torch.from_numpy(right),
         torch.from_numpy(xy_l), torch.from_numpy(x_r),
         torch.from_numpy(valid))
-    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
-    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-3)
+    inside = np.array([False, False, True, False, True])
+    np.testing.assert_array_equal(
+        tframe.sad_window_inside(torch.round(torch.from_numpy(xy_l)).int(),
+                                 torch.from_numpy(x_r).int(),
+                                 left.shape).numpy(), inside)
+    okj, okt = np.asarray(okj), okt.numpy()
+    np.testing.assert_array_equal(okt, okj & inside)
+    assert okj[1] and not okt[1]                      # the departure
+    assert okt[4]
+    np.testing.assert_allclose(xt.numpy()[inside], np.asarray(xj)[inside],
+                               atol=1e-3)
+
+
+def test_sad_in_bounds_term_rejects_nothing_on_the_sequence(monkeypatch):
+    """On the frames of the parity sequence the keypoints' border keeps
+    every stereo candidate's patch and strip inside the image: the
+    in-bounds term of sad_subpixel_refine rejects no match."""
+    frames, _ = sequence(12)
+    real = tframe.sad_subpixel_refine
+    seen = []
+
+    def counted(left_img, right_img, xy_l, x_r, valid, win=5, search=5):
+        inside = tframe.sad_window_inside(
+            torch.round(xy_l).to(torch.int32),
+            torch.round(x_r).to(torch.int32), left_img.shape, win, search)
+        seen.append((int(valid.sum()), int((valid & ~inside).sum())))
+        return real(left_img, right_img, xy_l, x_r, valid, win, search)
+
+    monkeypatch.setattr(tframe, "sad_subpixel_refine", counted)
+    for left, right in frames:
+        tframe.extract_frame(left, TCFG, right_img=right, device="cpu")
+    assert len(seen) == len(frames)
+    assert min(n for n, _ in seen) > 100
+    assert [r for _, r in seen] == [0] * len(frames)
 
 
 def test_features_in_area(stereo_inputs):

@@ -92,6 +92,14 @@ def test_fixture_builders_match_jax(which):
     _assert_states_close(jsh.state, tsh.state)
 
 
+def _at_port_width(jdb, cfg):
+    """The JAX database's table, 1024 words wide, at the port's width, the
+    feature capacity (ROADMAP.md fault 3): kfdb_from_numpy cuts padding
+    only, and asserts it."""
+    return convert.kfdb_to_numpy(convert.kfdb_from_numpy(
+        jax_fields(jdb), "cpu", width=cfg.caps.max_features))
+
+
 def _read_rows(sink):
     sink.f.flush()
     with open(sink.path) as f:
@@ -122,10 +130,10 @@ def test_detection_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
         np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
         np.testing.assert_allclose(tvec.numpy(), np.asarray(jvec), atol=1e-6)
-        got = convert.kfdb_to_numpy(tcl.db)
-        np.testing.assert_array_equal(got["words"], np.asarray(jcl.db.words))
-        np.testing.assert_allclose(got["wts"], np.asarray(jcl.db.wts),
-                                   atol=1e-6)
+        got, want = convert.kfdb_to_numpy(tcl.db), _at_port_width(jcl.db,
+                                                                  cfg)
+        np.testing.assert_array_equal(got["words"], want["words"])
+        np.testing.assert_allclose(got["wts"], want["wts"], atol=1e-6)
         assert jcl._detect(jsh, k, jc, jw, jvld, jvec) == \
             tcl._detect(tsh, k, tc, tw, tvld, tvec)
     jrows, trows = (_read_rows(s) for s in sinks)
@@ -257,9 +265,10 @@ def test_system_with_vocabulary_matches_jax():
         ts._track(torch_feats_from_jax(f), i)
         assert ts.tracker.state == js.tracker.state == ttr.TrackerState.OK
     assert ts.shared.n_created == js.shared.n_created >= 2
-    jdb, tdb = js.loop_closer.db, convert.kfdb_to_numpy(ts.loop_closer.db)
-    np.testing.assert_array_equal(tdb["active"], np.asarray(jdb.active))
+    jdb = _at_port_width(js.loop_closer.db, TCFG)
+    tdb = convert.kfdb_to_numpy(ts.loop_closer.db)
+    np.testing.assert_array_equal(tdb["active"], jdb["active"])
     assert tdb["active"].sum() == len(ts.shared.uid_slot)   # live ones
-    np.testing.assert_array_equal(tdb["words"], np.asarray(jdb.words))
-    np.testing.assert_allclose(tdb["wts"], np.asarray(jdb.wts), atol=1e-6)
+    np.testing.assert_array_equal(tdb["words"], jdb["words"])
+    np.testing.assert_allclose(tdb["wts"], jdb["wts"], atol=1e-6)
     assert ts.loop_closer.loop_edges == js.loop_closer.loop_edges == []

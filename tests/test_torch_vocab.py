@@ -83,9 +83,10 @@ def test_scores_and_common_words_match_jax(vocabs):
 
 @pytest.mark.parametrize("max_words", [1024, 48])
 def test_database_matches_jax(vocabs, max_words):
-    """Registration, erasure, scores and common words; with 48 words a
-    keyframe keeps its 48 lowest word ids and silently drops the rest (the
-    JAX package's contract, kept)."""
+    """Registration, erasure, scores and common words; in a table 48 words
+    wide a keyframe keeps its 48 lowest word ids, as in the JAX package (the
+    loop closer and the server make the table as wide as the feature
+    capacity, and so keep every word)."""
     jv, tv = vocabs
     rng = np.random.default_rng(9)
     K = 12
@@ -120,6 +121,75 @@ def test_database_matches_jax(vocabs, max_words):
         np.asarray(jkfdb.score_kfs(jdb, jvec, jnp.asarray(rows))), atol=1e-6)
 
 
+def test_database_keeps_every_word_at_2048_features():
+    """Fault 3 (ROADMAP.md queue 3), the port's departure from the JAX
+    package: at F = 2048 a keyframe has more than 1024 unique words. The
+    port's table, as wide as the feature capacity, keeps them all, as the
+    reference's KeyFrameDatabase::add does: it equals the JAX database made
+    with max_words_per_kf=2048, and scores agree at 1e-6. The JAX default
+    keeps the 1024 lowest ids, and the words past rank 1024 are absent from
+    its row. convert.kfdb_from_numpy widens such a [K, 1024] table with
+    padding, and narrows a table only where it cuts padding alone."""
+    rng = np.random.default_rng(12)
+    k, depth, F, K = 16, 3, 2048, 4
+    cents = [rng.integers(0, 2**32, (k ** (lv + 1), 8), dtype=np.uint32)
+             for lv in range(depth)]
+    idf = rng.uniform(0.5, 3.0, k ** depth).astype(np.float32)
+    jv = jbow.Vocabulary([jnp.asarray(c) for c in cents], jnp.asarray(idf),
+                         k, depth)
+    tv = convert.vocabulary_from_numpy(
+        {"centroids": cents, "idf": idf, "k": k, "depth": depth}, "cpu")
+    jwide = jkfdb.empty_database(K, jv, max_words_per_kf=F)
+    jcap = jkfdb.empty_database(K, jv)
+    tdb = tkfdb.empty_database(K, tv, F)
+    frames = [random_descs(rng, F) for _ in range(3)]
+    valid = [rng.random(F) < 0.95 for _ in frames]
+    frames.append(random_descs(rng, F))
+    valid.append(np.arange(F) < 200)
+    n_unique = []
+    for i, (f, v) in enumerate(zip(frames, valid)):
+        jwide, jw, _ = jkfdb.add_keyframe(jwide, jv, i, jnp.asarray(f),
+                                          jnp.asarray(v))
+        jcap, _, _ = jkfdb.add_keyframe(jcap, jv, i, jnp.asarray(f),
+                                        jnp.asarray(v))
+        tdb, tw, _ = tkfdb.add_keyframe(tdb, tv, i, _t(f), _t(v))
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+        n_unique.append(len(np.unique(tw.numpy()[v])))
+    assert min(n_unique[:3]) > 1024 and n_unique[3] <= 200
+    _db_equal(jwide, tdb)
+    rows, cap = tdb.words.numpy(), np.asarray(jcap.words)
+    np.testing.assert_array_equal((rows >= 0).sum(1), n_unique)  # no drop
+    for i in range(3):
+        kept = rows[i][:n_unique[i]]
+        np.testing.assert_array_equal(cap[i], kept[:1024])
+        assert not np.isin(kept[1024:], cap[i]).any()
+    q = perturb(rng, frames[1], 6)
+    jo, to = _ones(F)
+    jw = jbow.transform_words(jv, jnp.asarray(q), jo)
+    jvec = jbow.bow_vector(jv, jw, jo)
+    js, jc = jkfdb.score_and_common(jwide, jw, jo, jvec)
+    ts, tc = tkfdb.score_and_common(tdb, _t(jw), to, _t(jvec))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
+    cs, _ = jkfdb.score_and_common(jcap, jw, jo, jvec)
+    assert float(cs[1]) < float(ts[1]) - 0.05       # what the cap cost
+    # across the packages: a JAX [K, 1024] table brought to the port's width
+    fields = {f: np.asarray(a) for f, a in jcap._asdict().items()}
+    wide = convert.kfdb_from_numpy(fields, "cpu", width=F)
+    assert wide.words.shape == (K, F)
+    _db_equal(jcap, convert.kfdb_from_numpy(
+        convert.kfdb_to_numpy(wide), "cpu", width=1024))
+    np.testing.assert_allclose(
+        tkfdb.score_and_common(wide, _t(jw), to, _t(jvec))[0].numpy(),
+        np.asarray(cs), atol=1e-6)
+    with pytest.raises(AssertionError):
+        convert.kfdb_from_numpy(fields, "cpu", width=512)
+    small = {f: a[3:] for f, a in fields.items()}
+    narrow = convert.kfdb_from_numpy(small, "cpu", width=256)
+    np.testing.assert_array_equal(narrow.words.numpy(),
+                                  small["words"][:, :256])
+
+
 def _query_setup(vocabs, seed):
     """A 10-keyframe database where keyframes 7 and 8 revisit keyframe 2, a
     noisy query of keyframe 2, and a covisibility matrix with tied
@@ -127,7 +197,7 @@ def _query_setup(vocabs, seed):
     jv, tv = vocabs
     rng = np.random.default_rng(seed)
     K = 16
-    jdb, tdb = jkfdb.empty_database(K, jv), tkfdb.empty_database(K, tv)
+    jdb, tdb = jkfdb.empty_database(K, jv), tkfdb.empty_database(K, tv, 1024)
     frames = [random_descs(rng, 120) for _ in range(10)]
     frames[7] = perturb(rng, frames[2], 6)
     frames[8] = perturb(rng, frames[2], 9)
