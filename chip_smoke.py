@@ -736,11 +736,13 @@ def spd_system(D, seed):
 
 def check_pcg_cluster_sizes():
     """The cluster path's other branches, which no path of this script
-    reaches: D = 654 (D not a multiple of 4: scalar load of S, scalar sends;
-    8 blocks) and D = 924 (the 16-block cluster, a size the launch must ask
-    leave for). On seeded well-conditioned systems that 32 iterations solve,
-    warm and cold: within 1e-4 of x's scale of the plain version, two
-    launches bit-identical."""
+    reaches with every pose live: D = 654 (rows padded to a multiple of 4,
+    scalar sends; 8 blocks) and D = 924 (the 16-block cluster, a size the
+    launch must ask leave for). On seeded well-conditioned systems that 32
+    iterations solve, warm and cold: within 1e-4 of x's scale of the plain
+    version, two launches bit-identical; timed beside the earlier grid
+    design (`ms_v1`) and the cluster path on all poses without the live
+    pass (`ms_cluster_all_poses`)."""
     lib = pcg.load_kernel()
     rows = []
     for D, blocks in ((654, 8), (924, 16)):
@@ -762,17 +764,102 @@ def check_pcg_cluster_sizes():
         row["kernel_ms"] = device_ms(pcg._bind_launch(S, rhs, Dinv, 32, x0)[0])
         row["ms_v1"] = device_ms(pcg._bind_launch(
             S, rhs, Dinv, 32, x0, launch=lib.pcg_launch_grid)[0])
+        row["ms_cluster_all_poses"] = device_ms(pcg._bind_launch(
+            S, rhs, Dinv, 32, x0,
+            launch=lambda S_, r_, Di_, x0_, x_, sc_, D_, K_, n_, st_:
+            lib.pcg_launch_cluster(S_, r_, Di_, x0_, x_, D_, K_, n_, blocks,
+                                   st_))[0])
         rows.append(row)
     print("pcg, other cluster sizes: " + json.dumps(rows))
 
 
-def check_pcg_kernel(systems):
-    """K3 against ba_kernels.pcg_solve on reduced camera systems taken from
-    real builds, D = 48, 384, 1536 and 3072, with and without a warm start.
-    The plain version does the arithmetic of the path D takes: on the grid
-    path each row of S p summed in float64 and rounded once, as the kernel
-    has done there since its float32 rows proved too noisy (``rows_f64``);
-    on the cluster path in float32.
+def live_system(K, n_live, seed, scattered=True):
+    """A seeded system of K poses of which n_live are live (scattered, or
+    the first n_live): a dense, well-conditioned SPD block with strong 6x6
+    diagonal blocks on them, and on every other pose what bundle adjustment
+    gives a fixed or invalid one: an identity block, zero coupling, rhs 0.
+    (S, rhs, Dinv) on the card."""
+    rng = np.random.default_rng(seed)
+    live = (np.sort(rng.choice(K, n_live, replace=False)) if scattered
+            else np.arange(n_live))
+    idx = (6 * live[:, None] + np.arange(6)[None]).reshape(-1)
+    n = idx.size
+    S = np.eye(6 * K)
+    rhs = np.zeros(6 * K)
+    if n:
+        A = rng.normal(size=(n, n))
+        S[np.ix_(idx, idx)] = A @ A.T / n + np.diag(rng.uniform(1.0, 50.0, n))
+        rhs[idx] = rng.normal(size=n)
+    blocks = np.stack([S[6 * k:6 * k + 6, 6 * k:6 * k + 6] for k in range(K)])
+
+    def dev(a):
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+    return dev(S), dev(rhs), dev(np.linalg.inv(blocks))
+
+
+def kernel_live(S, rhs, Dinv, warm, run=None):
+    """One kernel solve's live list, held against pcg.live_poses: returns
+    (the number of live poses, the rows of the inert poses as a mask).
+    Fails if the lists differ."""
+    D = S.shape[0]
+    if run is None:
+        run = pcg._bind_launch(S, rhs, Dinv, 32, warm)[0]
+        run()
+    poses, n = pcg.scratch_live(run.scratch, D)
+    want, want_n = pcg.live_poses(S, rhs, Dinv, warm)
+    if not (torch.equal(poses, want) and torch.equal(n, want_n)):
+        raise SystemExit(f"pcg: the kernel's live list at D={D} differs from "
+                         f"pcg.live_poses ({int(n)} against {int(want_n)} "
+                         "poses)")
+    KL = int(want_n)
+    inert = torch.ones(D, dtype=torch.bool, device=S.device)
+    inert[(6 * poses[:KL, None].long() + torch.arange(
+        6, device=S.device)).reshape(-1)] = False
+    return KL, inert
+
+
+def pcg_serial_floor(path, D, DL):
+    """(us per iteration of the skeleton of `path`, the earlier grid
+    design's skeleton us per iteration at D): two barriers (the cluster's or
+    the grid's) and two reductions an iteration, no matrix."""
+    lib = pcg.load_kernel()
+    scratch = torch.empty(lib.pcg_scratch_floats(D), device="cuda")
+    out = torch.empty(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def per_iter_us(chain):
+        def run(count):
+            if chain(count) != 0:
+                raise SystemExit("pcg barrier-chain probe failed to launch")
+        n = 2000
+        return (cuda_ms(lambda: run(n), 5) - cuda_ms(lambda: run(0), 5)) \
+            / n * 1e3
+
+    def grid(count):
+        return lib.pcg_barrier_chain_grid(scratch.data_ptr(), out.data_ptr(),
+                                          D, count, stream)
+    chains = {
+        "cluster": lambda count: lib.pcg_barrier_chain_cluster(
+            out.data_ptr(), count, max(1, lib.pcg_live_cluster_blocks(
+                D, DL)), stream),
+        "resident": lambda count: lib.pcg_barrier_chain_resident(
+            scratch.data_ptr(), out.data_ptr(), D, count, stream),
+        "stream": grid}
+    us = per_iter_us(chains[path]) if path in chains else 0.0
+    return us, per_iter_us(grid)
+
+
+def check_pcg_kernel(systems, paths=None):
+    """K3 against ba_kernels.pcg_solve on reduced camera systems (label ->
+    (S, rhs, Dinv)) taken from real builds, D = 48, 384, 1536 and 3072, and
+    on seeded ones, with and without a warm start.
+    The kernel solves the poses the system moves: its list of live poses
+    (left in the launch's scratch) must equal pcg.live_poses, and the rows
+    of the inert poses must come back as the start (x0, or 0) bit for bit.
+    The plain version does the arithmetic of the kernel at this D: where
+    D > 924 each row of S p summed in float64 and rounded once, as the
+    kernel has done there since its float32 rows proved too noisy
+    (``rows_f64``), whatever path the live system takes; in float32 below.
     After 2 iterations the two agree within 1e-4 of x's scale (the same
     arithmetic in another summation order; r - alpha A p cancels, which
     amplifies the last bit of alpha). After 32 iterations they are two
@@ -795,17 +882,20 @@ def check_pcg_kernel(systems):
     the plain version's own spread after 2 iterations under four of those
     reorderings (the size of its ordering noise on that system; with
     float32 rows that noise exceeded the 1e-4 on a global BA's system,
-    which is why the grid path sums its rows in float64), the residual of the float64
-    solution rounded to float32, and on the grid path the kernel's
+    which is why rows sum in float64 there), the residual of the float64
+    solution rounded to float32, and where D > 924 the kernel's
     2-iteration distance to the plain version with float32 rows, and the
-    2-iteration error and the time of its earlier design, which summed
-    those rows in float32 (`pcg_launch_grid_f32rows`), against that plain
-    version. Two launches are bit-identical. D <= 924
-    goes through the cluster path (S resident in shared memory: 48 and 384
-    here, 768 on the loop-closing phase's global BA), larger D through the
-    grid path (1536 and 3072 here, 1536 on the global BA at the benchmark's
-    size); each row says which (`path`), and on the cluster path the grid
-    path is timed beside it on the same system (`ms_v1`)."""
+    2-iteration error and the time of the earlier grid design with float32
+    rows (`pcg_launch_grid_f32rows`), against that plain version. Two
+    launches are bit-identical. Each row says how many poses are live
+    (`live_poses`, `live_dim`), the path the live system took (`path`:
+    cluster, resident or stream; `paths` fixes it for the labels it names),
+    the kernel's time beside the earlier design's in turns (`ms_v1`:
+    `pcg_launch_grid`, every row of S streamed from L2, the grid path of
+    every D > 924 before; where D <= 924 also `ms_cluster_all_poses`, the
+    cluster path on all K poses, that D's path before), the peak memory of
+    one call beyond its inputs (`peak_scratch_mb`) and the serial skeleton
+    of the path taken (`serial_floor_ms`) beside the earlier grid's."""
     lib = pcg.load_kernel()
     rows = []
 
@@ -815,13 +905,14 @@ def check_pcg_kernel(systems):
     def solve_grid_f32(*args):
         return pcg._pcg_solve_cuda(*args, launch=lib.pcg_launch_grid_f32rows)
 
-    for D in sorted(systems):
-        S, rhs, Dinv = systems[D]
-        path = "cluster" if lib.pcg_cluster_blocks(D) > 0 else "grid"
-        if path != ("cluster" if D <= 924 else "grid"):
-            raise SystemExit(f"pcg took the {path} path at D={D}")
-        plain = functools.partial(ba_kernels.pcg_solve,
-                                  rows_f64=path == "grid")
+    def launch_all_poses(S, rhs, Dinv, x0, x, scratch, D, K, n, stream):
+        return lib.pcg_launch_cluster(S, rhs, Dinv, x0, x, D, K, n,
+                                      lib.pcg_cluster_blocks(D), stream)
+
+    for label, (S, rhs, Dinv) in systems.items():
+        D = S.shape[0]
+        f64 = D >= pcg.ROWS_F64_FROM
+        plain = functools.partial(ba_kernels.pcg_solve, rows_f64=f64)
         S64 = S.double()
         exact = torch.linalg.solve(S64, rhs.double())
         norm = float(torch.sqrt(exact @ (S64 @ exact)))
@@ -878,7 +969,18 @@ def check_pcg_kernel(systems):
             en_k, en_p = energy(xk - exact), energy(xp - exact)
             en_diff = energy(xk - xp)
             again = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
-            row = {"name": "pcg", "D": D, "warm_start": warm is not None,
+            # the live poses: the kernel's list against pcg.live_poses, and
+            # the inert rows left at the start bit for bit
+            run_new = pcg._bind_launch(S, rhs, Dinv, 32, warm)[0]
+            run_new()
+            KL, inert = kernel_live(S, rhs, Dinv, warm, run_new)
+            start = torch.zeros_like(xk) if warm is None else warm
+            inert_kept = torch.equal(xk[inert], start[inert])
+            path = pcg.path_of(D, 6 * KL)
+            row = {"name": "pcg", "system": label, "D": D,
+                   "warm_start": warm is not None,
+                   "live_poses": KL, "live_dim": 6 * KL, "path": path,
+                   "rows_f64": f64,
                    "err_2_iters": err2, "err_32_iters": err,
                    "err_2_iters_vs_f64": err2_k64,
                    "plain_err_2_iters_vs_f64": err2_p64,
@@ -889,34 +991,35 @@ def check_pcg_kernel(systems):
                    "residual_plain_reordered_worst": res_reordered,
                    "residual_exact_in_f32": res(exact32),
                    "residual_one_ulp_from_exact": res_ulp,
-                   "residual_floor": res_floor}
+                   "residual_floor": res_floor,
+                   "inert_rows_equal_start": inert_kept}
+            if path == "cluster":
+                row["cluster_blocks"] = lib.pcg_live_cluster_blocks(
+                    D, 6 * KL)
             if not (bool(torch.isfinite(xk).all()) and err2 <= 1e-4
                     and en_k <= 1.1 * en_p + 1e-6
                     and en_diff <= 0.25 * en_p + 1e-5
-                    and res_k <= 1.1 * res_floor + 1e-7):
+                    and res_k <= 1.1 * res_floor + 1e-7 and inert_kept):
                 raise SystemExit("pcg kernel disagrees with its plain "
                                  "version: " + json.dumps(row))
             if not torch.equal(xk, again):
                 raise SystemExit("pcg kernel is not deterministic")
-            row["path"] = path
-            ms_v1 = wrapper_ms_v1 = None
-            run_new = pcg._bind_launch(S, rhs, Dinv, 32, warm)[0]
-            if path == "cluster":
-                # the grid path on the same system: correct by the same
-                # measure, and timed in turns with the cluster path
-                xg = solve_grid(S, rhs, Dinv, 32, warm)
-                row["energy_diff_grid_path"] = energy(xg - xp)
-                row["energy_err_grid_path"] = energy(xg - exact)
-                if not energy(xg - exact) <= 1.1 * en_p + 1e-6:
-                    raise SystemExit("pcg grid path disagrees at D=%d" % D)
-                run_grid = pcg._bind_launch(S, rhs, Dinv, 32, warm,
-                                            launch=lib.pcg_launch_grid)[0]
-                t_grid = [device_ms(run_grid)]
-            else:
-                # the earlier design, each row of S p summed in float32:
-                # its 2-iteration error against the plain version with
-                # float32 rows (beside the kernel's), and its time in turns
-                # with this one
+            if paths and label in paths and path != paths[label]:
+                raise SystemExit(f"pcg: {label} took the {path} path, not "
+                                 f"the {paths[label]} path")
+            # the earlier grid design on the same system: correct by the
+            # same measure, and timed in turns with the present one
+            xg = solve_grid(S, rhs, Dinv, 32, warm)
+            row["energy_diff_grid_path"] = energy(xg - xp)
+            row["energy_err_grid_path"] = energy(xg - exact)
+            if not energy(xg - exact) <= 1.1 * en_p + 1e-6:
+                raise SystemExit("pcg grid path disagrees at D=%d" % D)
+            run_grid = pcg._bind_launch(S, rhs, Dinv, 32, warm,
+                                        launch=lib.pcg_launch_grid)[0]
+            if f64:
+                # the grid design before that, each row of S p summed in
+                # float32: its 2-iteration error against the plain version
+                # with float32 rows (beside the kernel's), and its time
                 p2_f32 = ba_kernels.pcg_solve(S, rhs, Dinv, 2, warm)
                 row["err_2_iters_vs_plain_f32_rows"] = scale_err(k2, p2_f32)
                 k2_f32 = solve_grid_f32(S, rhs, Dinv, 2, warm)
@@ -925,57 +1028,89 @@ def check_pcg_kernel(systems):
                     k2_f32.double(), ba_kernels.pcg_solve(
                         S64, rhs.double(), Dinv.double(), 2,
                         None if warm is None else warm.double()))
-                run_f32 = pcg._bind_launch(
+                row["ms_f32_rows"] = device_ms(pcg._bind_launch(
                     S, rhs, Dinv, 32, warm,
-                    launch=lib.pcg_launch_grid_f32rows)[0]
-                t_f32 = [device_ms(run_f32)]
-            t_new = [device_ms(run_new), device_ms(run_new)]
-            if path == "cluster":
-                t_grid.append(device_ms(run_grid))
-                ms_v1 = min(t_grid)
-                wrapper_ms_v1 = cuda_ms(
-                    lambda: solve_grid(S, rhs, Dinv, 32, warm), 20)
-                # the load of S and the set-up alone: no iteration
-                row["load_only_ms"] = device_ms(
-                    pcg._bind_launch(S, rhs, Dinv, 0, warm)[0])
+                    launch=lib.pcg_launch_grid_f32rows)[0])
+                run_all = None
             else:
-                t_f32.append(device_ms(run_f32))
-                row["ms_f32_rows"] = min(t_f32)
+                run_all = pcg._bind_launch(S, rhs, Dinv, 32, warm,
+                                           launch=launch_all_poses)[0]
+            t_v1, t_new, t_all = [device_ms(run_grid)], [], []
+            if run_all is not None:
+                t_all.append(device_ms(run_all))
+            t_new += [device_ms(run_new), device_ms(run_new)]
+            if run_all is not None:
+                t_all.append(device_ms(run_all))
+            t_v1.append(device_ms(run_grid))
+            if run_all is not None:
+                row["ms_cluster_all_poses"] = min(t_all)
             wrapper_ms = cuda_ms(
                 lambda: pcg.pcg_solve(S, rhs, Dinv, 32, warm), 20)
+            wrapper_ms_v1 = cuda_ms(
+                lambda: solve_grid(S, rhs, Dinv, 32, warm), 20)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pcg.pcg_solve(S, rhs, Dinv, 32, warm)
+            torch.cuda.synchronize()
+            row["peak_scratch_mb"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e6
             plain_ms = cuda_ms(lambda: plain(S, rhs, Dinv, 32, warm), 5)
             bound_ms, bound_by = pcg_bound_ms(D, 32, warm is not None)
-            row.update({"kernel_ms": min(t_new), "ms_v1": ms_v1,
+            row.update({"kernel_ms": min(t_new), "ms_v1": min(t_v1),
                         "wrapper_ms": wrapper_ms,
                         "wrapper_ms_v1": wrapper_ms_v1,
                         "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "blocks": (lib.pcg_cluster_blocks(D)
-                                   or lib.pcg_grid_blocks(D))})
+                        "grid_blocks_v1": lib.pcg_grid_blocks(D)})
             rows.append(row)
         # the exact solve a later change will weigh K3 against (another
         # function than 32 inexact CG steps, so not a library time of K3)
         rows[-1]["cholesky_solve_ms"] = cuda_ms(
             lambda: torch.cholesky_solve(rhs[:, None],
                                          torch.linalg.cholesky_ex(S).L), 5)
-        # the serial skeleton of the path this D takes: two barriers (the
-        # cluster's or the grid's) and two reductions an iteration
-        scratch = torch.empty(lib.pcg_scratch_floats(D), device="cuda")
-        out = torch.empty(1, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def chain(count):
-            if lib.pcg_barrier_chain(scratch.data_ptr(), out.data_ptr(), D,
-                                     count, stream) != 0:
-                raise SystemExit("pcg barrier-chain probe failed to launch")
-
-        n = 2000
-        per_iter_us = (cuda_ms(lambda: chain(n), 5)
-                       - cuda_ms(lambda: chain(0), 5)) / n * 1e3
-        rows[-1]["barrier_pair_us"] = per_iter_us
-        rows[-1]["serial_floor_ms"] = 33 * per_iter_us * 1e-3
+        # the serial skeleton of the path the (warm) live system took
+        us, us_v1 = pcg_serial_floor(rows[-1]["path"], D,
+                                     rows[-1]["live_dim"])
+        rows[-1]["barrier_pair_us"] = us
+        rows[-1]["serial_floor_ms"] = 33 * us * 1e-3
+        rows[-1]["serial_floor_ms_v1"] = 33 * us_v1 * 1e-3
     print("pcg: " + json.dumps(rows))
     return rows
+
+
+def check_pcg_live_systems():
+    """Seeded systems that reach each path of the live solve: D = 3072 with
+    an eighth of the poses live, scattered (cluster path, rows in float64);
+    D = 1536 all live (the grid holding the rows in shared memory); D = 3072
+    all live (the grid streaming them); each through check_pcg_kernel. And a
+    system with no live pose (every block an identity, rhs 0): the kernel
+    returns the start bit for bit, cold and from a zero warm start, as the
+    plain version does, and its time is the design's fixed cost (the pass
+    over S, the list, the launches that return at once)."""
+    systems = {"D=3072, 1/8 live, scattered": live_system(512, 64, 1),
+               "D=1536, all live": live_system(256, 256, 2),
+               "D=3072, all live": live_system(512, 512, 3)}
+    paths = dict(zip(systems, ("cluster", "resident", "stream")))
+    rows = check_pcg_kernel(systems, paths)
+    del systems
+    torch.cuda.empty_cache()
+    S, rhs, Dinv = live_system(512, 0, 4)
+    row = {"name": "pcg", "system": "D=3072, all inert", "D": 3072}
+    for warm in (None, torch.zeros_like(rhs)):
+        x = pcg.pcg_solve(S, rhs, Dinv, 32, warm)
+        KL, _ = kernel_live(S, rhs, Dinv, warm)
+        p = ba_kernels.pcg_solve(S, rhs, Dinv, 32, warm, rows_f64=True)
+        if not (KL == 0 and torch.equal(x, torch.zeros_like(x))
+                and torch.equal(p, x)):
+            raise SystemExit("pcg: the all-inert system did not return its "
+                             f"start ({KL} live poses)")
+    run = pcg._bind_launch(S, rhs, Dinv, 32, torch.zeros_like(rhs))[0]
+    row.update({"live_poses": 0, "path": pcg.path_of(3072, 0),
+                "returns_start": True, "kernel_ms": device_ms(run),
+                "bound_ms": pcg_bound_ms(3072, 32, True)[0]})
+    print("pcg, all inert: " + json.dumps(row))
+    return rows + [row]
 
 
 def check_solver_determinism():
@@ -1035,6 +1170,11 @@ def reset_counts():
     ba_prep.compact_points.launches = 0
     pcg.pcg_solve.launches = 0
     torch_ops.reset_host_fetch_count()
+
+
+# the problem of the last BA solve a path ran (drive_path), for the kernel
+# checks on it after the path
+KEPT_PROBLEMS = {}
 
 
 def drive_path(frames, t_gt, local_ba: bool, vocab=None):
@@ -1097,6 +1237,7 @@ def drive_path(frames, t_gt, local_ba: bool, vocab=None):
 
     def keeping_prepare_solve(prob, *a, **kw):
         span_peak()
+        KEPT_PROBLEMS["last"] = prob
         sc = real_prepare_solve(prob, *a, **kw)
         solves.append((sc.ws._replace(buffers=None), prob.q, prob.t, sc.pw))
         return sc
@@ -1566,8 +1707,8 @@ def check_gba_kernels(label, prob, cam, chunk):
     against its plain version (1e-3 of each output's scale, two launches
     bit-identical), timed alone beside its first design, with its bound on
     this workspace; K3 on that build's reduced camera system through
-    check_pcg_kernel (energy norm and residual, bit-identical, the path D
-    selects); and two whole
+    check_pcg_kernel (the live list, energy norm and residual,
+    bit-identical, the path the live dimension selects); and two whole
     solves of the problem (10 LM iterations) bit-identical.
     Returns (K2 row, K3 row with a warm start)."""
     K = prob.q.shape[0]
@@ -1581,7 +1722,7 @@ def check_gba_kernels(label, prob, cam, chunk):
     del a, b
     row, system = check_k2(label, prob, cam, chunk)
     print(f"{label}, pcg on its reduced camera system:")
-    k3 = check_pcg_kernel({6 * K: system})
+    k3 = check_pcg_kernel({label: system})
     return row, next(r for r in k3 if r["warm_start"])
 
 
@@ -3471,6 +3612,9 @@ def gba_keys(row, suffix):
             "max_err_over_scale": "max_err", "err_32_iters": "max_err",
             "energy_diff": "energy_norm_diff", "kernel_ms": "ms",
             "ms_v1": "ms_v1", "ms_f32_rows": "ms_f32_rows",
+            "ms_cluster_all_poses": "ms_cluster_all_poses",
+            "live_poses": "live_poses", "live_dim": "live_dim",
+            "peak_scratch_mb": "peak_scratch_mb",
             "plain_ms": "plain_ms", "bound_ms": "bound_ms",
             "bound_by": "bound_by", "wrapper_ms": "wrapper_ms",
             "assembly_ms": "assembly_ms"}
@@ -3514,6 +3658,8 @@ def main():
     check_pcg_cluster_sizes()
     del systems
     torch.cuda.empty_cache()
+    k3_live = check_pcg_live_systems()
+    torch.cuda.empty_cache()
     check_solver_determinism()
 
     # 4. the paths without a vocabulary: with local bundle adjustment, then
@@ -3524,6 +3670,14 @@ def main():
             frames[:N_FRAMES_BA], t_gt[:N_FRAMES_BA], local_ba=True)
     k2_real = prep_real_maps(solves)
     del solves
+    torch.cuda.empty_cache()
+    # K3 on the main path's own local BA (D = 384): the live solve against
+    # the cluster path on all 64 poses, in turns
+    lba_prob = KEPT_PROBLEMS.pop("last")
+    _, ba_lba_k3 = check_gba_kernels(
+        "BA path local BA", lba_prob, CAM,
+        steps_mod._ba_chunk(lba_prob.pw.shape[0]))
+    del lba_prob
     torch.cuda.empty_cache()
     no_ba_launches, no_ba_report, _ = drive_path(
         frames[:N_FRAMES_NO_BA], t_gt[:N_FRAMES_NO_BA], local_ba=False)
@@ -3560,6 +3714,7 @@ def main():
                                                          local_ba=True,
                                                          vocab=vocab)
     step_inputs = frontend_inputs(frames)
+    KEPT_PROBLEMS.clear()
     del solves, frames
     torch.cuda.empty_cache()
     with counting("ring"):
@@ -3743,6 +3898,19 @@ def main():
         **gba_keys(lba_k3, "corridor_lba"),
         **gba_keys(fusion_k3, "fusion_gba"),
         **gba_keys(mono_k3, "mono_lba"),
+        **gba_keys(ba_lba_k3, "ba_path_lba"),
+        **{k: k3[k] for k in ("live_poses", "live_dim",
+                              "ms_cluster_all_poses", "peak_scratch_mb")},
+        **gba_keys(next(r for r in k3_live if r["warm_start"]
+                        and r["system"].startswith("D=3072, 1/8")),
+                   "seeded_3072_eighth_live"),
+        **gba_keys(next(r for r in k3_live if r["warm_start"]
+                        and r["system"] == "D=1536, all live"),
+                   "seeded_1536_all_live"),
+        **gba_keys(next(r for r in k3_live if r["warm_start"]
+                        and r["system"] == "D=3072, all live"),
+                   "seeded_3072_all_live"),
+        "ms_all_inert": k3_live[-1]["kernel_ms"],
         "launches_scale_out": so_launches["1"]["pcg"],
         "launches_scale_out_2_ranks": so_launches["2"]["pcg"],
         "launches_scale_out_4_ranks": so_launches["4"]["pcg"],

@@ -4,16 +4,19 @@ Counterpart of the JAX package's ``ba_kernels.pcg_solve_pallas``. Two
 implementations of one function:
 
 - the CUDA kernel ``csrc/pcg.cu`` (replaces the Pallas TPU kernel inside
-  ``optim/ba_kernels.py::pcg_solve_pallas``): the whole fixed-length solve in
-  one launch, for every D = 6K (no size above which it gives way to another
-  solver). Two paths inside the C launcher, chosen by D alone: where S fits
-  the shared memory of one thread-block cluster (8 blocks up to D = 660, the
-  local BA's D = 384 among them; 16 blocks up to D = 924) it is loaded there
-  once and the loop never touches global memory; larger D stream S from L2
-  through a cooperative grid. See the
-  source's header for what bounds each;
+  ``optim/ba_kernels.py::pcg_solve_pallas``): the whole fixed-length solve on
+  the device with no host read, for every D = 6K. It solves only the poses
+  the solve moves: one pass over S lists the live poses (a pose is inert
+  where its rows of S are zero outside its own 6x6 block and its block of
+  r0 = rhs - S x0 is zero; ``live_poses`` is that test in plain PyTorch), and
+  the live system S[live, live] takes the path its dimension DL selects,
+  decided on the device: a thread-block cluster that holds it in shared
+  memory (DL <= 924; 600 where D > 924), a cooperative grid that holds it in the shared memory
+  of all SMs (``pcg_resident_cap``), or that grid streaming the live rows
+  from L2. Rows of S p are summed in float64 where the full D exceeds 924,
+  in float32 below. See the source's header;
 - ``ba_kernels.pcg_solve``, the plain PyTorch version (``_pcg_solve_plain``
-  here).
+  here), on the whole system.
 
 ``pcg_solve`` dispatches on the matrix's device only: a CUDA tensor goes to
 the kernel (or raises), a CPU tensor to the plain version.
@@ -24,7 +27,12 @@ import ctypes
 
 import torch
 
+from ..utils.torch_ops import first_true_indices
 from .ba_kernels import pcg_solve as _pcg_solve_plain
+
+# D from which the kernel sums every row of S p in float64 (the plain
+# version's rows_f64), whatever path the live system takes
+ROWS_F64_FROM = 925
 
 
 def pcg_solve(S_dense, rhs_flat, block_diag_inv, n_iters: int = 48, x0=None):
@@ -42,9 +50,11 @@ pcg_solve.launches = 0   # kernel launches so far (plain int)
 
 
 def cluster_rows(D: int, n_blocks: int):
-    """Rows of S each block of the cluster path owns: [(first, end), ...],
-    as csrc/pcg.cu deals them (the library's ``pcg_cluster_blocks(D)`` says
-    how many blocks the launcher takes for a dimension, 0 for the grid path).
+    """Rows of a system of dimension D (all poses, or the live ones) each
+    block of the cluster path owns: [(first, end), ...], as csrc/pcg.cu deals
+    them (the library's ``pcg_cluster_blocks(D)`` says how many blocks such a
+    system needs, 0 where it is too large for the cluster path, and
+    ``pcg_live_cluster_blocks`` how many a solve puts to work on it).
 
     The K = D / 6 poses are dealt in contiguous runs whose lengths differ by
     at most one (longer runs first), and a block owns all six rows of each of
@@ -56,6 +66,52 @@ def cluster_rows(D: int, n_blocks: int):
     base, rem = divmod(K, n_blocks)
     first = [b * base + min(b, rem) for b in range(n_blocks + 1)]
     return [(6 * first[b], 6 * first[b + 1]) for b in range(n_blocks)]
+
+
+def live_poses(S_dense, rhs_flat, block_diag_inv, x0=None):
+    """The poses a solve of S x = rhs moves, as the kernel lists them:
+    (poses [K] int32, the live poses ascending and then zeros; count [1]
+    int32). Pose k is inert where its six rows of S are exactly zero outside
+    its own 6x6 diagonal block and its block of r0 = rhs - S x0 (r0 = rhs
+    without a warm start; each row of S x0 summed in float64 and rounded
+    once where D > 924, as the kernel does) is exactly zero; every other
+    pose is live. block_diag_inv gives K only: the test is on S and r0."""
+    K = block_diag_inv.shape[0]
+    D = 6 * K
+    pose = torch.arange(D, device=S_dense.device) // 6
+    coupled = ((S_dense != 0) & (pose[:, None] != pose[None, :])).any(dim=1)
+    r0 = rhs_flat
+    if x0 is not None:
+        if D >= ROWS_F64_FROM:
+            r0 = rhs_flat - (S_dense.double() @ x0.double()).float()
+        else:
+            r0 = rhs_flat - S_dense @ x0
+    live = (coupled | (r0 != 0)).reshape(K, 6).any(dim=1)
+    return (first_true_indices(live, K, 0).to(torch.int32),
+            live.sum(dtype=torch.int32).reshape(1))
+
+
+def scratch_live(scratch, D: int):
+    """(poses [K] int32, count [1] int32): the live list a kernel launch left
+    in its scratch (``_bind_launch``'s ``run.scratch``), as views."""
+    at = load_kernel().pcg_live_offset(D)
+    K = D // 6
+    ints = scratch[at:at + K + 1].view(torch.int32)
+    return ints[:K], ints[K:K + 1]
+
+
+PATHS = {0: "none", 1: "cluster", 2: "resident", 3: "stream"}
+
+
+def path_of(D: int, DL: int) -> str:
+    """The path a live system of dimension DL takes in a kernel solve of
+    dimension D: "none" (DL = 0: x = x0), "cluster", "resident" (the grid
+    holding the live rows in shared memory) or "stream" (the grid streaming
+    them from L2)."""
+    code = load_kernel().pcg_path(D, DL)
+    if code not in PATHS:
+        raise RuntimeError(f"pcg_path({D}, {DL}) failed: {code}")
+    return PATHS[code]
 
 
 _lib = None
@@ -70,21 +126,31 @@ def load_kernel():
         lib = load_library("pcg")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pcg_launch.argtypes = [p] * 6 + [i, i, i, p]
+        lib.pcg_launch_live.argtypes = [p] * 6 + [i, i, i, i, i, p]
         lib.pcg_launch_grid.argtypes = [p] * 6 + [i, i, i, p]
         lib.pcg_launch_grid_f32rows.argtypes = [p] * 6 + [i, i, i, p]
         lib.pcg_launch_cluster.argtypes = [p] * 5 + [i, i, i, i, p]
         lib.pcg_scratch_floats.argtypes = [i]
+        lib.pcg_live_offset.argtypes = [i]
         lib.pcg_grid_blocks.argtypes = [i]
+        lib.pcg_resident_blocks.argtypes = []
+        lib.pcg_resident_cap.argtypes = [i]
         lib.pcg_cluster_blocks.argtypes = [i]
+        lib.pcg_live_cluster_blocks.argtypes = [i, i]
         lib.pcg_cluster_smem_bytes.argtypes = [i, i]
-        lib.pcg_barrier_chain.argtypes = [p, p, i, i, p]
+        lib.pcg_path.argtypes = [i, i]
         lib.pcg_barrier_chain_grid.argtypes = [p, p, i, i, p]
+        lib.pcg_barrier_chain_resident.argtypes = [p, p, i, i, p]
         lib.pcg_barrier_chain_cluster.argtypes = [p, i, i, p]
-        for fn in (lib.pcg_launch, lib.pcg_launch_grid,
+        for fn in (lib.pcg_launch, lib.pcg_launch_live, lib.pcg_launch_grid,
                    lib.pcg_launch_grid_f32rows, lib.pcg_launch_cluster,
-                   lib.pcg_scratch_floats,
-                   lib.pcg_grid_blocks, lib.pcg_cluster_blocks,
-                   lib.pcg_barrier_chain, lib.pcg_barrier_chain_grid,
+                   lib.pcg_scratch_floats, lib.pcg_live_offset,
+                   lib.pcg_grid_blocks, lib.pcg_resident_blocks,
+                   lib.pcg_resident_cap, lib.pcg_cluster_blocks,
+                   lib.pcg_live_cluster_blocks,
+                   lib.pcg_path,
+                   lib.pcg_barrier_chain_grid,
+                   lib.pcg_barrier_chain_resident,
                    lib.pcg_barrier_chain_cluster):
             fn.restype = i
         lib.pcg_cluster_smem_bytes.restype = ctypes.c_longlong
@@ -112,7 +178,8 @@ def _bind_launch(S, rhs, Dinv, n_iters, x0, launch=None):
     launches the kernel on these buffers on the current stream and does
     nothing else, so a timing script can call it back to back; `launch`
     (such a script's choice) stands in for ``pcg_launch`` and takes the same
-    arguments."""
+    arguments. run.scratch is the launch's scratch (``scratch_live`` reads
+    the live list a launch left there)."""
     lib = load_kernel()
     launch = launch or lib.pcg_launch
     dev = S.device
@@ -139,6 +206,7 @@ def _bind_launch(S, rhs, Dinv, n_iters, x0, launch=None):
         if err != 0:
             raise RuntimeError(f"pcg kernel launch failed: CUDA error {err}")
 
+    run.scratch = scratch
     return run, x
 
 

@@ -11,8 +11,9 @@
   against numpy;
 - optim/pcg.py: the plain version of the PCG kernel against the Pallas body
   of pcg_solve_pallas in interpret mode and against pcg_solve; the row
-  ownership of the cluster path (its choice by size is asked of the built
-  library, on the card).
+  ownership of the cluster path (its choice by the live dimension is asked
+  of the built library, on the card, with scattered live poses at
+  D = 3072).
 
 Inputs come from a seed through numpy and go to both packages. Tolerances are
 relative to each output's scale (its largest magnitude): 2e-5 for the
@@ -22,6 +23,8 @@ a few metres; found 1e-5), 5e-4 against the interpreted Pallas body (found
 up to 1.1e-4 in Wb, Y, Ht, bt and Ybp: the interpreter fuses differently
 again), 1e-4 for PCG after 32 iterations (found: 2e-6).
 """
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -408,7 +411,7 @@ def test_pcg_kernel_matches_plain_on_the_card(cuda_device):
         assert rel_err(k.cpu().numpy(), p.cpu().numpy()) <= 1e-4
 
 
-def _energy_check(S, rhs, Dinv, x0, solve):
+def _energy_check(S, rhs, Dinv, x0, solve, plain=tbk.pcg_solve):
     """The measure of chip_smoke.py: after 32 iterations the kernel's error
     against a float64 solve, in the energy norm, is within 1.1 x the plain
     version's, the two differ by at most 0.25 of that error (+ 1e-5), and
@@ -422,11 +425,10 @@ def _energy_check(S, rhs, Dinv, x0, solve):
         return float(torch.sqrt((d @ (S64 @ d)).clamp_min(0.0))) / norm
 
     for warm in (None, x0):
-        k2, p2 = solve(S, rhs, Dinv, 2, warm), tbk.pcg_solve(S, rhs, Dinv, 2,
-                                                             warm)
+        k2, p2 = solve(S, rhs, Dinv, 2, warm), plain(S, rhs, Dinv, 2, warm)
         assert rel_err(k2.cpu().numpy(), p2.cpu().numpy()) <= 1e-4
         xk = solve(S, rhs, Dinv, 32, warm)
-        xp = tbk.pcg_solve(S, rhs, Dinv, 32, warm)
+        xp = plain(S, rhs, Dinv, 32, warm)
         en_p = energy(xp - exact)
         assert energy(xk - exact) <= 1.1 * en_p + 1e-6
         assert energy(xk - xp) <= 0.25 * en_p + 1e-5
@@ -434,23 +436,94 @@ def _energy_check(S, rhs, Dinv, x0, solve):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D, blocks", [(48, 8), (384, 8), (654, 8), (660, 8),
-                                       (666, 16), (924, 16), (930, 0),
-                                       (1536, 0), (3072, 0)])
-def test_cluster_path_is_chosen_by_size_alone(cuda_device, D, blocks):
-    """The launcher's choice: 8 blocks where they hold S in shared memory,
-    else 16, else the grid path; what a block asks for holds its rows and
-    stays inside the 227 KB it may have."""
+@pytest.mark.parametrize("D, DL, path", [
+    (48, 48, "cluster"), (384, 384, "cluster"), (654, 654, "cluster"),
+    (660, 660, "cluster"), (666, 666, "cluster"), (924, 924, "cluster"),
+    (3072, 0, "none"), (3072, 48, "cluster"), (3072, 384, "cluster"),
+    (3072, 600, "cluster"), (3072, 606, "resident"),
+    (1536, 1536, "resident"), (3072, 2376, "resident"),
+    (3072, 3072, "stream")])
+def test_cluster_path_is_chosen_by_size_alone(cuda_device, D, DL, path):
+    """The launcher's choice, made on the card by the live dimension DL
+    alone (the rows of the poses the solve moves): the cluster path where
+    one cluster holds S[live, live] in shared memory (up to DL = 924; 600
+    where D > 924 sums rows in float64, above which the grid is faster),
+    else the grid holding the live rows in every SM's shared memory up to
+    pcg_resident_cap (2,376 at K = 512 on 132 SMs), else the grid streaming
+    them; DL = 0 leaves x = x0. The cluster puts about 4 poses on a block,
+    at most the 8 blocks it launches up to D = 660, else 16; the all-pose
+    cluster of D <= 924 asks for what holds its rows and stays inside the
+    227 KB a block may have."""
     lib = pcg.load_kernel()
     limit = 227 * 1024
-    assert lib.pcg_cluster_blocks(D) == blocks
-    if blocks:
+    assert pcg.path_of(D, DL) == path
+    assert lib.pcg_resident_cap(512) >= 2376
+    active = lib.pcg_live_cluster_blocks(D, DL)
+    assert (active > 0) == (path == "cluster")
+    if path == "cluster":
+        assert active == min(-(-DL // 24), 8 if D <= 660 else 16)
+        rows = max(b - a for a, b in pcg.cluster_rows(DL, active))
+        assert 4 * rows * DL <= limit
+    if D <= 924:
+        blocks = lib.pcg_cluster_blocks(D)
+        assert blocks == (8 if D <= 660 else 16)
         need = lib.pcg_cluster_smem_bytes(D, blocks)
         rows = max(b - a for a, b in pcg.cluster_rows(D, blocks))
         assert 4 * rows * D <= need <= limit
-    for n_blocks in (8, 16):
-        if n_blocks != blocks and (blocks == 0 or n_blocks < blocks):
-            assert lib.pcg_cluster_smem_bytes(D, n_blocks) > limit
+        for n_blocks in (8, 16):
+            if n_blocks < blocks:
+                assert lib.pcg_cluster_smem_bytes(D, n_blocks) > limit
+
+
+def _live_system(seed, K, n_live):
+    """A dense SPD system on n_live poses scattered among K (strong 6x6
+    diagonal blocks), identity blocks, zero coupling, rhs 0 and a warm
+    start of 0 on the others: (S, rhs, Dinv, x0, live poses), float32."""
+    rng = np.random.default_rng(seed)
+    live = np.sort(rng.choice(K, n_live, replace=False))
+    idx = (6 * live[:, None] + np.arange(6)[None]).reshape(-1)
+    n = idx.size
+    A = rng.normal(size=(n, n))
+    S = np.eye(6 * K)
+    S[np.ix_(idx, idx)] = A @ A.T / n + np.diag(rng.uniform(1.0, 50.0, n))
+    rhs = np.zeros(6 * K)
+    rhs[idx] = rng.normal(size=n)
+    x0 = np.zeros(6 * K)
+    x0[idx] = 0.7 * np.linalg.solve(S[np.ix_(idx, idx)], rhs[idx])
+    blocks = np.stack([S[6 * k:6 * k + 6, 6 * k:6 * k + 6] for k in range(K)])
+    f32 = np.float32
+    return (S.astype(f32), rhs.astype(f32), np.linalg.inv(blocks).astype(f32),
+            x0.astype(f32), live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live, path", [(64, "cluster"),
+                                          (256, "resident")])
+def test_pcg_scattered_live_poses_on_the_card(cuda_device, n_live, path):
+    """D = 3072 with n_live poses live, scattered: the kernel's list (left
+    in its scratch) equals pcg.live_poses, the live system takes the path
+    its size selects, the inert rows come back as x0 bit for bit, and the
+    solve agrees with the plain version summing rows in float64 (D > 924)
+    by chip_smoke.py's measure, two launches bit for bit."""
+    K = 512
+    S, rhs, Dinv, x0, live = (
+        torch.from_numpy(a).to(cuda_device) if a.dtype == np.float32 else a
+        for a in _live_system(9, K, n_live))
+    assert pcg.path_of(6 * K, 6 * n_live) == path
+    for warm in (None, x0):
+        run, x = pcg._bind_launch(S, rhs, Dinv, 32, warm)
+        run()
+        poses, n = pcg.scratch_live(run.scratch, 6 * K)
+        want = pcg.live_poses(S, rhs, Dinv, warm)
+        assert torch.equal(poses, want[0]) and torch.equal(n, want[1])
+        assert poses[:n_live].cpu().tolist() == live.tolist()
+        inert = torch.ones(6 * K, dtype=torch.bool, device=cuda_device)
+        inert[(6 * poses[:n_live, None].long()
+               + torch.arange(6, device=cuda_device)).reshape(-1)] = False
+        start = torch.zeros_like(x) if warm is None else warm
+        assert torch.equal(x[inert], start[inert])
+    _energy_check(S, rhs, Dinv, x0, pcg.pcg_solve,
+                  plain=functools.partial(tbk.pcg_solve, rows_f64=True))
 
 
 @pytest.mark.cuda
